@@ -1,0 +1,46 @@
+"""PyTorch + CUDA port of the bidirectional sphere path tracer.
+
+The JAX package ``gpu_bidirectional_raytracer_tpu`` is the reference; this
+package mirrors its layout module for module and never imports it or JAX.
+Plain tensor code is PyTorch; the eye-path megakernel is CUDA C++ for
+Hopper (``csrc/trace_kernel.cu``), built with nvcc at first use and bound
+with ctypes (``ops/_build.py``). Entry points take a ``device`` that
+defaults to ``"cuda"`` and raise when no card is present; pass
+``device="cpu"`` to run the plain versions on the CPU.
+"""
+
+__version__ = "0.1.0"
+
+from gpu_bidirectional_raytracer_tpu_torch.core.types import (
+    DIFF,
+    LITE,
+    REFR,
+    SPEC,
+    Camera,
+    IntegratorConfig,
+    Rays,
+    RenderState,
+    Scene,
+    VplBuffer,
+)
+from gpu_bidirectional_raytracer_tpu_torch.render.progressive import (
+    Renderer,
+    init_state,
+    render_image,
+)
+from gpu_bidirectional_raytracer_tpu_torch.scene.builtin import (
+    cornell_box,
+    test_scene,
+)
+from gpu_bidirectional_raytracer_tpu_torch.scene.parser import (
+    load_scene,
+    parse_scene,
+    write_scene,
+)
+
+__all__ = [
+    "Camera", "IntegratorConfig", "Rays", "RenderState", "Scene",
+    "VplBuffer", "DIFF", "SPEC", "REFR", "LITE", "load_scene",
+    "parse_scene", "write_scene", "cornell_box", "test_scene", "Renderer",
+    "init_state", "render_image",
+]

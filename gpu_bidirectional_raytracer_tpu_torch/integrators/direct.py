@@ -1,0 +1,166 @@
+"""Next-event estimation: explicit light sampling and the VPL gather.
+
+Port of ``gpu_bidirectional_raytracer_tpu/integrators/direct.py`` (forward
+only). Per light, one uniform sample on the whole sphere surface, rejected
+when it faces away, contribution ``e * gain * (4 pi r^2) * wi * wo /
+len^2``. The VPL gather reads the window ``vlp_index .. vlp_index +
+max_vlp`` (wrapping modulo ``light_points``) of every VPL depth, with
+shadow rays that pass through emitters, and averages over the window.
+``sample_lights`` combines the two as ``(direct + vpl) / 2``.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+from torch import Tensor
+
+from gpu_bidirectional_raytracer_tpu_torch.core import vecmath as vm
+from gpu_bidirectional_raytracer_tpu_torch.core.types import (
+    EPSILON,
+    IntegratorConfig,
+    Scene,
+    VplBuffer,
+)
+from gpu_bidirectional_raytracer_tpu_torch.integrators import intersect as isect
+from gpu_bidirectional_raytracer_tpu_torch.integrators.sampling import (
+    uniform_sphere,
+)
+
+_TINY = 1e-20
+
+
+def static_light_indices(scene: Scene) -> tuple[int, ...]:
+    """Host-side: indices of the emissive spheres, in scan order."""
+    e = scene.e.cpu().numpy()
+    return tuple(int(i) for i in range(e.shape[0]) if (e[i] != 0.0).any())
+
+
+def _segments(target: Tensor, hp: Tensor):
+    """Unit directions, lengths and shadow ``maxt`` from ``hp [N,3]`` to
+    ``target [N,K,3]``."""
+    sdir = target - hp[:, None, :]
+    len_sq = vm.dot(sdir, sdir)
+    length = torch.where(len_sq > 0.0, torch.sqrt(len_sq),
+                         torch.zeros_like(len_sq))
+    sdir = sdir / torch.clamp(length, min=_TINY)[..., None]
+    return sdir, length, length - EPSILON
+
+
+def _count_shadow_work(work: dict, scene: Scene, hp: Tensor, sdir: Tensor,
+                       maxt: Tensor, set_up: Tensor, cast: Tensor,
+                       vacuum: bool) -> None:
+    """Adds one NEE term's shadow work per lane ``[N]`` to ``work``: the
+    samples set up (``set_up [N, K]``), the shadow rays cast (``cast [N,
+    K]``) and the sphere tests those rays make before their first blocker.
+    """
+    tests = isect.anyhit_tests(
+        scene, hp[:, None, :].expand_as(sdir).reshape(-1, 3),
+        sdir.reshape(-1, 3), maxt.reshape(-1), vacuum).reshape(cast.shape)
+    for name, per_slot in (("shadow_setups", set_up), ("shadow_rays", cast),
+                           ("shadow_tests", torch.where(cast, tests, 0))):
+        work[name] = work.get(name, 0) + per_slot.sum(dim=-1)
+
+
+def sample_direct(scene: Scene, cfg: IntegratorConfig,
+                  light_idx: tuple[int, ...], hp: Tensor, nl: Tensor,
+                  light_u: Tensor, work: dict | None = None) -> Tensor:
+    """Direct light at ``hp [N,3]`` with shading normal ``nl [N,3]``.
+    ``light_u [L, 2, N]`` are the uniforms of each light slot. ``work``,
+    when given, receives the shadow work per lane (`_count_shadow_work`)."""
+    n = hp.shape[0]
+    out = torch.zeros((n, 3), dtype=hp.dtype, device=hp.device)
+    if not light_idx:
+        return out
+    li = torch.tensor(light_idx, dtype=torch.int64, device=hp.device)
+    lp, lrad, le = scene.p[li], scene.rad[li], scene.e[li]
+
+    usp = uniform_sphere(light_u[:, 0, :].T, light_u[:, 1, :].T)  # [N, L, 3]
+    sphere_point = lp[None, :, :] + lrad[None, :, None] * usp
+    sdir, length, maxt = _segments(sphere_point, hp)
+
+    wo = vm.dot(sdir, usp)
+    facing = wo <= 0.0
+    wo = -wo
+    wi = vm.dot(sdir, nl[:, None, :])
+    occluded = isect.intersect_p(
+        scene, hp[:, None, :].expand_as(sdir).reshape(-1, 3),
+        sdir.reshape(-1, 3), maxt.reshape(-1)).reshape(length.shape)
+
+    scale = ((4.0 * math.pi) * lrad * lrad)[None, :] * wi * wo / torch.clamp(
+        length * length, min=_TINY)
+    contrib = le[None, :, :] * (cfg.light_gain * scale)[..., None]
+    cast = facing & (wi > 0.0)
+    mask = cast & torch.logical_not(occluded)
+    contrib = torch.where(mask[..., None], contrib, torch.zeros_like(contrib))
+    if work is not None:
+        _count_shadow_work(work, scene, hp, sdir, maxt,
+                           torch.ones_like(cast), cast, vacuum=False)
+    for slot in range(len(light_idx)):
+        out = out + contrib[:, slot]
+    return out
+
+
+def vpl_window(cfg: IntegratorConfig, vpls: VplBuffer, vlp_index: int):
+    """The gathered VPLs ``(hp, rad, nl, valid)``, each ``[K, ...]`` with
+    ``K = vpl_depth * max_vlp`` (depth-major)."""
+    raw = torch.arange(cfg.max_vlp, device=vpls.hp.device) + int(vlp_index)
+    if cfg.stale_vpl_window:
+        # The reference's window slides off the end: slots past it are
+        # treated as invalid.
+        lanes = torch.clamp(raw, max=cfg.light_points - 1)
+        in_range = raw < cfg.light_points
+    else:
+        lanes = raw % cfg.light_points
+        in_range = torch.ones_like(raw, dtype=torch.bool)
+    d_ = cfg.vpl_depth
+    return (vpls.hp[:d_, lanes].reshape(-1, 3),
+            vpls.rad[:d_, lanes].reshape(-1, 3),
+            vpls.nl[:d_, lanes].reshape(-1, 3),
+            (vpls.valid[:d_, lanes] & in_range[None, :]).reshape(-1))
+
+
+def gather_vpls(scene: Scene, cfg: IntegratorConfig, vpls: VplBuffer,
+                vlp_index: int, hp: Tensor, nl: Tensor,
+                work: dict | None = None) -> Tensor:
+    """The VPL gather at ``hp``, averaged over the window: ``[N, 3]``."""
+    w_hp, w_rad, w_nl, w_valid = vpl_window(cfg, vpls, vlp_index)
+    k = w_hp.shape[0]
+    sdir, length, maxt = _segments(w_hp[None, :, :].expand(
+        hp.shape[0], k, 3), hp)
+    wo = vm.dot(sdir, w_nl[None, :, :])
+    facing = wo <= 0.0
+    wo = -wo
+    wi = vm.dot(sdir, nl[:, None, :])
+    occluded = isect.intersect_p_vacuum(
+        scene, hp[:, None, :].expand_as(sdir).reshape(-1, 3),
+        sdir.reshape(-1, 3), maxt.reshape(-1)).reshape(length.shape)
+    contrib = w_rad[None, :, :] * (wi * wo)[..., None]
+    cast = facing & (wi > 0.0) & w_valid[None, :]
+    mask = cast & torch.logical_not(occluded)
+    contrib = torch.where(mask[..., None], contrib, torch.zeros_like(contrib))
+    if work is not None:
+        _count_shadow_work(work, scene, hp, sdir, maxt,
+                           w_valid[None, :].expand_as(cast), cast, vacuum=True)
+    total = contrib[:, 0]
+    for v in range(1, k):
+        total = total + contrib[:, v]
+    # Times the reciprocal, not divided: PyTorch on the card turns a
+    # division by a host scalar into this product anyway, so the plain
+    # version rounds alike on every device and like the CUDA kernel.
+    return total * (1.0 / k)
+
+
+def sample_lights(scene: Scene, cfg: IntegratorConfig,
+                  light_idx: tuple[int, ...], hp: Tensor, nl: Tensor,
+                  light_u: Tensor, vpls: VplBuffer | None = None,
+                  vlp_index: int | None = None,
+                  work: dict | None = None) -> Tensor:
+    """Full NEE: direct light plus, with VPLs, the ``(direct + vpl) / 2``
+    combine."""
+    direct = sample_direct(scene, cfg, light_idx, hp, nl, light_u, work)
+    if not cfg.use_vpl or vpls is None:
+        return direct
+    total = direct + gather_vpls(scene, cfg, vpls, vlp_index, hp, nl, work)
+    return total * 0.5 if cfg.combine_half else total

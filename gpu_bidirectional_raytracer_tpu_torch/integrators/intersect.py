@@ -1,0 +1,81 @@
+"""Vectorized ray-sphere intersection.
+
+Port of ``gpu_bidirectional_raytracer_tpu/integrators/intersect.py`` in its
+direct form: all-pairs ``[N rays, S spheres]`` quadratic roots with the
+reference's root choice (the smaller root if > EPSILON, else the larger if
+> EPSILON, else miss), the 1e-6 tangency clamp on the discriminant, a
+nearest-hit scan that keeps the lowest index on ties, and the any-hit
+tests for shadow rays (the vacuum variant lets emitters through).
+"""
+
+from __future__ import annotations
+
+import torch
+from torch import Tensor
+
+from gpu_bidirectional_raytracer_tpu_torch.core import vecmath as vm
+from gpu_bidirectional_raytracer_tpu_torch.core.types import EPSILON, Scene
+
+_BIG = 1e20  # miss sentinel of the nearest-hit scan
+
+
+def sphere_distances(scene: Scene, o: Tensor, d: Tensor,
+                     eps: float = EPSILON) -> Tensor:
+    """All-pairs hit distances ``[N, S]``; 0 where there is no hit."""
+    op = scene.p[None, :, :] - o[:, None, :]                     # [N, S, 3]
+    b = vm.dot(op, d[:, None, :])
+    opop = vm.dot(op, op)
+    det = b * b - opop + (scene.rad * scene.rad)[None, :]
+    hit = det >= 0.0
+    sq = torch.sqrt(torch.clamp(torch.where(hit, det, 1.0), min=1e-6))
+    t1 = b - sq
+    t2 = b + sq
+    zero = torch.zeros_like(t1)
+    t = torch.where(t1 > eps, t1, torch.where(t2 > eps, t2, zero))
+    return torch.where(hit, t, zero)
+
+
+def intersect(scene: Scene, o: Tensor, d: Tensor
+              ) -> tuple[Tensor, Tensor, Tensor]:
+    """Nearest hit: ``(hit [N] bool, t [N], id [N] int64)``."""
+    ts = sphere_distances(scene, o, d)
+    masked = torch.where(ts > 0.0, ts, torch.full_like(ts, _BIG))
+    t, idx = torch.min(masked, dim=-1)
+    # torch.min's index on ties is not specified: take the lowest index.
+    idx = torch.argmax((masked == t[:, None]).to(torch.uint8), dim=-1)
+    return t < _BIG, t, idx
+
+
+def intersect_p(scene: Scene, o: Tensor, d: Tensor, maxt: Tensor) -> Tensor:
+    """Any hit with ``0 < t < maxt`` (``maxt [N]``)."""
+    ts = sphere_distances(scene, o, d)
+    return torch.any((ts > 0.0) & (ts < maxt[:, None]), dim=-1)
+
+
+def intersect_p_vacuum(scene: Scene, o: Tensor, d: Tensor,
+                       maxt: Tensor) -> Tensor:
+    """Any hit within ``maxt`` by a non-emissive sphere."""
+    ts = sphere_distances(scene, o, d)
+    blocker = torch.logical_not(scene.is_light())[None, :]
+    return torch.any((ts > 0.0) & (ts < maxt[:, None]) & blocker, dim=-1)
+
+
+def anyhit_tests(scene: Scene, o: Tensor, d: Tensor, maxt: Tensor,
+                 vacuum: bool = False) -> Tensor:
+    """Sphere tests ``[N]`` that an any-hit scan stopping at its first
+    blocker makes per ray (the CUDA kernel's ``occluded``); the vacuum scan
+    skips emitters untested. A count of work, not part of the estimator."""
+    ts = sphere_distances(scene, o, d)
+    tested = torch.ones_like(ts, dtype=torch.bool)
+    if vacuum:
+        tested = tested & torch.logical_not(scene.is_light())[None, :]
+    block = ((ts > 0.0) & (ts < maxt[:, None]) & tested).to(torch.int64)
+    # Sphere s is tested when no blocker comes before it.
+    clear_before = (torch.cumsum(block, dim=-1) - block) == 0
+    return (tested & clear_before).sum(dim=-1)
+
+
+def gather_sphere_attrs(scene: Scene, hit_id: Tensor):
+    """Per-lane ``(p, e, c, refl)`` of the spheres ``hit_id [N]``."""
+    return (scene.p[hit_id], scene.e[hit_id], scene.c[hit_id],
+            scene.refl[hit_id])

@@ -1,0 +1,254 @@
+"""The eye-path megakernel: wrappers of ``csrc/trace_kernel.cu``.
+
+Port of ``gpu_bidirectional_raytracer_tpu/ops/pallas_trace.py``, whose
+Pallas kernel ``_kernel`` runs the whole eye path of a tile of rays in one
+TPU kernel. Here it is a CUDA kernel for Hopper, one thread per pixel (see
+the note at the top of the source for its design and bound):
+
+- `trace_pallas_camera` (camera mode): primary rays are made in the
+  kernel from the pixel id and the jitter rows of the tape;
+- `trace_pallas` (ray mode): the caller's rays, for a window
+  ``[lane_offset, lane_offset + N)`` of a ``lane_total``-wide frame.
+
+The random tape is regenerated in the kernel from per-row site keys
+(`rng.site_key_rows`), bit for bit `rng.site_uniforms`.
+
+A wrapper given CPU tensors runs its plain PyTorch version
+(`trace_camera_plain`, or `path_tracer.trace` in ray mode). Given CUDA
+tensors it launches the kernel or raises; it never falls back. Each launch
+adds one to ``LAUNCHES["trace_kernel"]``.
+"""
+
+from __future__ import annotations
+
+import torch
+from torch import Tensor
+
+from gpu_bidirectional_raytracer_tpu_torch import camera as cam_mod
+from gpu_bidirectional_raytracer_tpu_torch import rng
+from gpu_bidirectional_raytracer_tpu_torch.core.types import (
+    Camera,
+    IntegratorConfig,
+    Rays,
+    Scene,
+    VplBuffer,
+)
+from gpu_bidirectional_raytracer_tpu_torch.integrators import path_tracer
+from gpu_bidirectional_raytracer_tpu_torch.integrators.direct import vpl_window
+
+LAUNCHES = {"trace_kernel": 0}
+
+_CAM_ROWS = 2                 # tape rows of the camera jitter
+_SMEM_LIMIT = 48 * 1024       # static shared-memory budget of one block
+
+
+def reset_launches() -> None:
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+
+
+def _to_device(values: list, dtype: torch.dtype, device) -> Tensor:
+    """A small host table copied without blocking the host (pinned)."""
+    host = torch.tensor(values, dtype=dtype)
+    if torch.device(device).type == "cuda":
+        host = host.pin_memory()
+    return host.to(device, non_blocking=True)
+
+
+def _scene_table(scene: Scene) -> Tensor:
+    """``[S, 16]``: rad, p(3), e(3), c(3), refl, pad."""
+    s = scene.num_spheres
+    return torch.cat([scene.rad[:, None], scene.p, scene.e, scene.c,
+                      scene.refl.to(torch.float32)[:, None],
+                      torch.zeros((s, 5), dtype=torch.float32,
+                                  device=scene.device)], dim=1).contiguous()
+
+
+def _vpl_table(cfg: IntegratorConfig, vpls: VplBuffer | None,
+               vlp_index: int | None, device) -> Tensor:
+    """The gather window ``[V, 16]``: hp(3), rad(3), nl(3), valid, pad;
+    ``V = 0`` when there is no VPL gather."""
+    if not (cfg.use_vpl and vpls is not None):
+        return torch.zeros((0, 16), dtype=torch.float32, device=device)
+    hp, rad, nl, valid = vpl_window(cfg, vpls, vlp_index)
+    v = hp.shape[0]
+    return torch.cat([hp, rad, nl, valid.to(torch.float32)[:, None],
+                      torch.zeros((v, 6), dtype=torch.float32,
+                                  device=device)], dim=1).contiguous()
+
+
+def _key_table(cfg: IntegratorConfig, light_idx: tuple[int, ...],
+               key: rng.Key, sample: int, cam_jitter: bool,
+               device) -> tuple[Tensor, int]:
+    """Tape site keys ``[K, 4]`` (k0, k1, block row, 0), then the light
+    ids, as one int32 tensor holding uint32 bits. Per depth the rows are
+    the LIGHT_UV site's u1 rows of every light slot, then its u2 rows, then
+    DIFF_UV rows 0-1 and REFR_RR row 0 — the order the kernel reads."""
+    n_slots = max(len(light_idx), 1)
+    rows: list[tuple[int, int, int]] = []
+    if cam_jitter:
+        rows += rng.site_key_rows(key, sample, 0, rng.CAM_JITTER, [0, 1])
+    for depth in range(cfg.max_depth):
+        rows += rng.site_key_rows(
+            key, sample, depth, rng.LIGHT_UV,
+            list(range(0, 2 * n_slots, 2)) + list(range(1, 2 * n_slots, 2)))
+        rows += rng.site_key_rows(key, sample, depth, rng.DIFF_UV, [0, 1])
+        rows += rng.site_key_rows(key, sample, depth, rng.REFR_RR, [0])
+    words = [w for k0, k1, r in rows for w in (k0, k1, r, 0)]
+    words += list(light_idx)
+    # uint32 bits in int32 storage: the kernel reads them as uint32_t.
+    words = [w - (1 << 32) if w >= (1 << 31) else w for w in words]
+    return _to_device(words, torch.int32, device), len(rows)
+
+
+def _camera_table(cam: Camera, cfg: IntegratorConfig, width: int,
+                  height: int, sample: int) -> Tensor:
+    """``[32]`` camera constants: x_hat, y_hat, d_hat, orig, temp (0:15),
+    film ``inv_w, half_w, inv_h, half_h`` (15:19), stratified jitter
+    ``sx, sy, 1/k, on`` (20:24)."""
+    x_hat, y_hat, d_hat, temp = cam_mod.camera_frame(cam)
+    k = cfg.stratify
+    host = [*cam_mod.film_coords(width, height), 0.0]
+    host += ([float(sample % k), float((sample // k) % k), 1.0 / k, 1.0]
+             if k > 0 else [0.0, 0.0, 0.0, 0.0])
+    host += [0.0] * 8
+    return torch.cat([x_hat, y_hat, d_hat, cam.orig, temp,
+                      _to_device(host, torch.float32, cam.orig.device)])
+
+
+class TraceLaunch:
+    """One prepared launch of the kernel: its tables on the card, its
+    output and its C arguments. Calling it launches the kernel (without
+    counting; the wrappers count their launches)."""
+
+    def __init__(self, tables: list[Tensor], out: Tensor, args: tuple):
+        self.tables = tables    # keeps every pointer in `args` alive
+        self.out = out
+        self.args = args
+
+    def __call__(self) -> Tensor:
+        from gpu_bidirectional_raytracer_tpu_torch.ops import _build
+
+        rc = _build.load("trace_kernel")(*self.args)
+        if rc != 0:
+            raise RuntimeError(f"trace_kernel launch failed: CUDA error {rc}")
+        return self.out
+
+
+def prepare_launch(scene: Scene, cfg: IntegratorConfig,
+                   light_idx: tuple[int, ...], key: rng.Key, sample: int,
+                   vpls: VplBuffer | None, vlp_index: int | None, n: int, *,
+                   cam_tab: Tensor | None = None, width: int = 0,
+                   rays: Rays | None = None, lane_offset: int = 0,
+                   lane_total: int | None = None) -> TraceLaunch:
+    """Check the inputs and build the tables of one kernel launch."""
+    dev = scene.device
+    if dev.type != "cuda":
+        raise ValueError(f"trace_kernel runs on a CUDA device, got {dev}")
+    if any(not 0 <= i < scene.num_spheres for i in light_idx):
+        raise ValueError(f"light indices {light_idx} out of range for "
+                         f"{scene.num_spheres} spheres")
+    scene_tab = _scene_table(scene)
+    vpl_tab = _vpl_table(cfg, vpls, vlp_index, dev)
+    keys, n_rows = _key_table(cfg, light_idx, key, sample,
+                              cam_jitter=cam_tab is not None, device=dev)
+    smem = 4 * (scene_tab.numel() + vpl_tab.numel() + keys.numel())
+    if smem > _SMEM_LIMIT:
+        raise ValueError(f"trace_kernel tables need {smem} bytes of shared "
+                         f"memory, above {_SMEM_LIMIT}")
+    tables = [scene_tab, vpl_tab, keys]
+    if cam_tab is not None:
+        tables.append(cam_tab)
+    if rays is not None:
+        for t in (rays.o, rays.d):
+            if (t.device != dev or t.dtype != torch.float32
+                    or t.shape != (n, 3) or not t.is_contiguous()):
+                raise ValueError("rays must be contiguous float32 [N, 3] "
+                                 f"tensors on {dev}")
+        tables += [rays.o, rays.d]
+    out = torch.empty((n, 3), dtype=torch.float32, device=dev)
+    args = (scene_tab.data_ptr(), scene.num_spheres,
+            vpl_tab.data_ptr(), vpl_tab.shape[0],
+            keys.data_ptr(), n_rows, len(light_idx),
+            None if cam_tab is None else cam_tab.data_ptr(),
+            None if rays is None else rays.o.data_ptr(),
+            None if rays is None else rays.d.data_ptr(),
+            n, width, _CAM_ROWS if cam_tab is not None else 0,
+            cfg.max_depth, max(len(light_idx), 1),
+            int(cfg.combine_half),
+            lane_offset, n if lane_total is None else lane_total,
+            cfg.emission_scale, cfg.light_gain,
+            out.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+    return TraceLaunch(tables, out, args)
+
+
+def prepare_camera_launch(scene: Scene, cfg: IntegratorConfig,
+                          light_idx: tuple[int, ...], cam: Camera,
+                          width: int, height: int, key: rng.Key,
+                          sample: int, vpls: VplBuffer | None = None,
+                          vlp_index: int | None = None) -> TraceLaunch:
+    """The launch that `trace_pallas_camera` makes for CUDA tensors."""
+    return prepare_launch(
+        scene, cfg, light_idx, key, sample, vpls, vlp_index, width * height,
+        cam_tab=_camera_table(cam, cfg, width, height, sample), width=width)
+
+
+def _launch(call: TraceLaunch) -> Tensor:
+    out = call()
+    LAUNCHES["trace_kernel"] += 1
+    return out
+
+
+def trace_camera_plain(scene: Scene, cfg: IntegratorConfig,
+                       light_idx: tuple[int, ...], cam: Camera, width: int,
+                       height: int, key: rng.Key, sample: int,
+                       vpls: VplBuffer | None = None,
+                       vlp_index: int | None = None) -> Tensor:
+    """Plain camera-mode version: `camera.primary_rays` on the jitter
+    rows, then `path_tracer.trace` on the same tape. ``[H*W, 3]``."""
+    n = width * height
+    dev = scene.device
+    px, py = cam_mod.pixel_grid(width, height, device=dev)
+    jit_uv = rng.site_uniforms(key, sample, 0, rng.CAM_JITTER, 2, n,
+                               device=dev)
+    ju, jv = jit_uv[0], jit_uv[1]
+    if cfg.stratify > 0:
+        ju, jv = cam_mod.stratify_jitter(ju, jv, sample, cfg.stratify)
+    rays = cam_mod.primary_rays(cam, width, height, ju, jv, px, py)
+    return path_tracer.trace(scene, cfg, light_idx, rays, key, sample,
+                             vpls=vpls, vlp_index=vlp_index)
+
+
+def trace_pallas_camera(scene: Scene, cfg: IntegratorConfig,
+                        light_idx: tuple[int, ...], cam: Camera, width: int,
+                        height: int, key: rng.Key, sample: int,
+                        vpls: VplBuffer | None = None,
+                        vlp_index: int | None = None) -> Tensor:
+    """Radiance ``[H*W, 3]`` of one jittered sample per pixel, primary rays
+    made in the kernel."""
+    if scene.device.type == "cpu":
+        return trace_camera_plain(scene, cfg, light_idx, cam, width, height,
+                                  key, sample, vpls, vlp_index)
+    return _launch(prepare_camera_launch(scene, cfg, light_idx, cam, width,
+                                         height, key, sample, vpls,
+                                         vlp_index))
+
+
+def trace_pallas(scene: Scene, cfg: IntegratorConfig,
+                 light_idx: tuple[int, ...], rays: Rays, key: rng.Key,
+                 sample: int, vpls: VplBuffer | None = None,
+                 vlp_index: int | None = None,
+                 lane_offset: int | None = None,
+                 lane_total: int | None = None) -> Tensor:
+    """Radiance ``[N, 3]`` of the given rays (ray mode); the drop-in for
+    `path_tracer.trace`."""
+    if scene.device.type == "cpu":
+        return path_tracer.trace(scene, cfg, light_idx, rays, key, sample,
+                                 vpls=vpls, vlp_index=vlp_index,
+                                 lane_offset=lane_offset,
+                                 lane_total=lane_total)
+    n = rays.o.shape[0]
+    return _launch(prepare_launch(
+        scene, cfg, light_idx, key, sample, vpls, vlp_index, n, rays=rays,
+        lane_offset=lane_offset or 0,
+        lane_total=n if lane_total is None else lane_total))

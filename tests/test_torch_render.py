@@ -1,0 +1,197 @@
+"""The port's progressive renderer and film against the JAX package, and
+the port's own guarantees: it never imports JAX, and its entry points
+raise when asked for a card that is not there."""
+
+import os
+import subprocess
+import sys
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from gpu_bidirectional_raytracer_tpu.core.types import IntegratorConfig as JConfig
+from gpu_bidirectional_raytracer_tpu.render import film as jfilm
+from gpu_bidirectional_raytracer_tpu.render import progressive as jprog
+from gpu_bidirectional_raytracer_tpu.scene import parser as jparser
+import gpu_bidirectional_raytracer_tpu_torch as tpkg
+from gpu_bidirectional_raytracer_tpu_torch import convert
+from gpu_bidirectional_raytracer_tpu_torch.core import types as ttypes
+from gpu_bidirectional_raytracer_tpu_torch.ops import pallas_trace as tops
+from gpu_bidirectional_raytracer_tpu_torch.render import film as tfilm
+from gpu_bidirectional_raytracer_tpu_torch.render import progressive as tprog
+from gpu_bidirectional_raytracer_tpu_torch.scene import parser as tparser
+from torch_parity import assert_protocol, scn, to_torch_vpls
+
+torch.set_num_threads(2)
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+W, H = 16, 12
+
+
+def _renderers(seed=0, cfg=None, w=W, h=H):
+    o, t, js = jparser.load_scene(scn("cornell.scn"))
+    _, _, ts = tparser.load_scene(scn("cornell.scn"), device="cpu")
+    jr = jprog.Renderer(js, o, t, w, h, cfg=cfg, seed=seed, backend="xla")
+    tr = tprog.Renderer(ts, o, t, w, h,
+                        cfg=None if cfg is None else ttypes.IntegratorConfig(
+                            **cfg.__dict__),
+                        seed=seed, device="cpu")
+    return jr, tr
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2, 3])
+def test_eight_pass_render_matches_jax(seed):
+    """8 passes at 48x36 (1728 pixels), so the 3.5% bound is 60 pixels.
+    Measured bad fractions for seeds 0-3: 2.95%, 2.20%, 2.37%, 2.95%. A
+    path flipped in any one pass makes its pixel bad, so 8 passes add up;
+    JAX's own kernel and XLA renderers differ by 2.3-3.7% on the same
+    frames (ROADMAP queue 3)."""
+    jr, tr = _renderers(seed=seed, w=48, h=36)
+    before = dict(tops.LAUNCHES)
+    ref = jr.render(8)
+    got = tr.render(8)
+    assert tops.LAUNCHES == before   # CPU: the plain version, no kernel
+    assert_protocol(got.reshape(-1, 3), ref.reshape(-1, 3))
+    assert tr.state.sample == int(jr.state.sample) == 8
+    assert tr.state.vlp_index == int(jr.state.vlp_index)
+    assert np.array_equal(tr.state.counter.numpy(),
+                          np.asarray(jr.state.counter))
+    # colour bleeding: left wall red, right wall blue
+    left, right = got[:, :6].mean(axis=(0, 1)), got[:, -6:].mean(axis=(0, 1))
+    assert left[0] > left[2] and right[2] > right[0]
+
+
+def test_state_carried_across_continues_like_jax():
+    """Both packages continue from the same JAX state (`convert`)."""
+    jr, tr = _renderers(seed=2)
+    jr.render(3)
+    st = jr.state
+    tr.state = convert.state_from_numpy(
+        np.asarray(st.colors), np.asarray(st.counter), to_torch_vpls(st.vpls),
+        np.asarray(st.vlp_index), np.asarray(st.sample),
+        jax.random.key_data(st.key), device="cpu")
+    assert tr.state.key == tprog.init_state(W, H, tr.cfg, 2, "cpu").key
+    ref = jr.render(3)
+    got = tr.render(3)
+    assert tr.state.sample == 6
+    assert_protocol(got.reshape(-1, 3), ref.reshape(-1, 3))
+
+
+def test_vpl_schedule_matches_jax():
+    cfg = JConfig(light_points=64, max_vlp=5)
+    jr, tr = _renderers(cfg=cfg)
+    for _ in range(7):
+        jr.step()
+        tr.step()
+        assert tr.state.vlp_index == int(jr.state.vlp_index)
+    stale = JConfig(light_points=8, max_vlp=5, stale_vpl_window=True)
+    jr, tr = _renderers(cfg=stale)
+    for _ in range(6):
+        jr.step()
+        tr.step()
+        assert tr.state.vlp_index == int(jr.state.vlp_index)
+
+
+def test_accumulate_freezes_at_cap_like_jax():
+    rng = np.random.default_rng(7)
+    colors = rng.uniform(0, 1, (4, 5, 3)).astype(np.float32)
+    counter = np.array([[0, 1, 5, 29999, 30000]] * 4, np.int32)
+    radiance = rng.uniform(0, 2, (4, 5, 3)).astype(np.float32)
+    jc, jn = jprog._accumulate(jnp.asarray(colors), jnp.asarray(counter),
+                               jnp.asarray(radiance), 30000)
+    tc, tn = tprog._accumulate(torch.as_tensor(colors),
+                               torch.as_tensor(counter),
+                               torch.as_tensor(radiance), 30000)
+    assert np.array_equal(tn.numpy(), np.asarray(jn))
+    np.testing.assert_allclose(tc.numpy(), np.asarray(jc), rtol=1e-6,
+                               atol=1e-7)
+    assert np.array_equal(tc.numpy()[:, 4], colors[:, 4])
+
+
+def test_edits_reset_and_match_jax_camera():
+    jr, tr = _renderers()
+    tr.render(2)
+    for r in (jr, tr):
+        r.move_camera("dir", -5.0)
+        r.rotate_camera("yaw", 0.1)
+    assert tr.state.sample == 0 and float(tr.state.colors.abs().sum()) == 0
+    for f in ("orig", "target", "dir", "x", "y"):
+        np.testing.assert_allclose(getattr(tr.camera, f).numpy(),
+                                   np.asarray(getattr(jr.camera, f)),
+                                   rtol=1e-5, atol=1e-5)
+    tr.edit_sphere(6, [1.0, 0.0, -2.0])
+    jr.edit_sphere(6, [1.0, 0.0, -2.0])
+    assert np.array_equal(tr.scene.p.numpy(), np.asarray(jr.scene.p))
+    assert tr.light_idx == jr.light_idx
+
+
+def test_ppm_bytes_identical(tmp_path):
+    rng = np.random.default_rng(3)
+    colors = rng.uniform(-0.1, 1.2, (H, W, 3)).astype(np.float32)
+    jpath, tpath = tmp_path / "j.ppm", tmp_path / "t.ppm"
+    jfilm.write_ppm(jnp.asarray(colors), jpath)
+    tfilm.write_ppm(torch.as_tensor(colors), tpath)
+    assert jpath.read_bytes() == tpath.read_bytes()
+    assert np.array_equal(tfilm.read_ppm(tpath), jfilm.read_ppm(jpath))
+    assert np.array_equal(tfilm.to_bytes(colors), jfilm.to_bytes(colors))
+    assert (tfilm.snapshot_name(1, 2.5, 30)
+            == jfilm.snapshot_name(1, 2.5, 30))
+
+
+def test_port_and_smoke_script_never_import_jax():
+    code = (
+        "import sys, runpy\n"
+        "import gpu_bidirectional_raytracer_tpu_torch as p\n"
+        "from gpu_bidirectional_raytracer_tpu_torch import convert, camera\n"
+        "from gpu_bidirectional_raytracer_tpu_torch.ops import _build, "
+        "pallas_trace\n"
+        "from gpu_bidirectional_raytracer_tpu_torch.render import film, "
+        "progressive\n"
+        "from gpu_bidirectional_raytracer_tpu_torch.integrators import "
+        "light_tracer, path_tracer\n"
+        "runpy.run_path('chip_smoke.py', run_name='chip_smoke')\n"
+        "bad = sorted(m for m in sys.modules if m == 'jax' "
+        "or m.startswith('jax.') or m.startswith("
+        "'gpu_bidirectional_raytracer_tpu.') "
+        "or m == 'gpu_bidirectional_raytracer_tpu')\n"
+        "assert not bad, bad\n"
+        "print('ok')\n")
+    env = dict(os.environ, PYTHONPATH=REPO)
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip().endswith("ok")
+
+
+def test_entry_points_raise_without_a_card(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    o, t, scene = tparser.load_scene(scn("cornell.scn"), device="cpu")
+    cfg = ttypes.IntegratorConfig()
+    calls = [
+        lambda: tparser.load_scene(scn("cornell.scn")),
+        lambda: tpkg.cornell_box(),
+        lambda: tprog.init_state(W, H, cfg),
+        lambda: tprog.Renderer(scene, o, t, W, H),
+        lambda: tprog.render_image(scene, o, t, W, H, 1),
+        lambda: ttypes.Camera.make(o, t, W, H),
+        lambda: ttypes.VplBuffer.zeros(),
+    ]
+    for call in calls:
+        with pytest.raises(RuntimeError, match="is_available"):
+            call()
+
+
+def test_wrapper_refuses_cuda_without_kernel_route(monkeypatch):
+    """A non-CPU tensor never takes the plain version: the wrapper goes
+    to the kernel launch, which refuses a device that is not CUDA."""
+    o, t, scene = tparser.load_scene(scn("cornell.scn"), device="cpu")
+    cfg = ttypes.IntegratorConfig()
+    meta = scene.replace(rad=scene.rad.to("meta"), p=scene.p.to("meta"),
+                         e=scene.e.to("meta"), c=scene.c.to("meta"),
+                         refl=scene.refl.to("meta"))
+    cam = ttypes.Camera.make(o, t, W, H, device="cpu")
+    with pytest.raises(ValueError, match="CUDA device"):
+        tops.trace_pallas_camera(meta, cfg, (8,), cam, W, H, (1, 2), 0)

@@ -1,0 +1,113 @@
+"""The port's mix32 tape equals the JAX package's bit for bit: the frozen
+contract vectors of tests/test_core.py::TestMix32Contract, and whole
+`site_uniforms` tapes over sites, depths and lane windows."""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from gpu_bidirectional_raytracer_tpu import rng as jrng
+from gpu_bidirectional_raytracer_tpu_torch import rng as trng
+
+torch.set_num_threads(2)
+
+SEED_VECTORS = {
+    0: (1197142749, 149646298),
+    1: (2076871732, 3744768917),
+    42: (1467968187, 1538299671),
+    123456789: (4146660287, 1851957059),
+}
+FOLD_42_7 = (2816824906, 1087184347)
+STREAM_42_3_2_DIFF = (1088192210, 372474305)
+BITS_8 = (548861987, 1529853855, 2658193586, 2202051641,
+          4195756677, 650042591, 1373203663, 3478316495)
+UNIFORM_8 = (0.127791882, 0.356196761, 0.618908882, 0.512705088,
+             0.976900697, 0.151349783, 0.319723845, 0.809858561)
+
+
+def _jax_words(key):
+    return tuple(int(w) for w in np.asarray(jax.random.key_data(key)))
+
+
+class TestFrozenVectors:
+    @pytest.mark.parametrize("seed", sorted(SEED_VECTORS))
+    def test_seed_vectors(self, seed):
+        assert trng.make_key(seed) == SEED_VECTORS[seed]
+        assert trng.make_key(seed) == _jax_words(jrng.make_key(seed))
+
+    def test_fold_in_and_stream_key(self):
+        k = trng.make_key(42)
+        assert trng.fold_in(k, 7) == FOLD_42_7
+        assert trng.stream_key(k, 3, 2, trng.DIFF_UV) == STREAM_42_3_2_DIFF
+
+    def test_bits_and_uniforms(self):
+        ks = trng.stream_key(trng.make_key(42), 3, 2, trng.DIFF_UV)
+        bits = trng.random_bits(ks, torch.arange(8))
+        assert tuple(bits.tolist()) == BITS_8
+        model = jrng.mix32_reference(*ks, np.arange(8))
+        assert np.array_equal(bits.numpy().astype(np.uint32), model)
+        u = trng.bits_to_uniform(bits).numpy()
+        np.testing.assert_allclose(u, UNIFORM_8, rtol=0, atol=2e-9)
+        expect = (np.asarray(BITS_8, np.uint32) >> np.uint32(9)
+                  ).astype(np.float32) * np.float32(2.0 ** -23)
+        assert np.array_equal(u, expect)
+
+    def test_purpose_codes_match(self):
+        for name in ("CAM_JITTER", "LIGHT_UV", "DIFF_UV", "REFR_RR",
+                     "LIGHT_RAY_UV", "LIGHT_SCATTER"):
+            assert getattr(trng, name) == getattr(jrng, name)
+
+
+class TestTapesBitwise:
+    @pytest.mark.parametrize("seed,sample,depth,purpose,k,n", [
+        (0, 0, 0, jrng.CAM_JITTER, 2, 257),
+        (5, 3, 1, jrng.LIGHT_UV, 4, 64),
+        (7, 11, 6, jrng.DIFF_UV, 2, 1000),
+        (123456789, 29999, 2, jrng.REFR_RR, 1, 333),
+        (-3, 1, 0, jrng.LIGHT_RAY_UV, 4, 128),
+    ])
+    def test_site_uniforms(self, seed, sample, depth, purpose, k, n):
+        ref = np.asarray(jrng.site_uniforms(jrng.make_key(seed), sample,
+                                            depth, purpose, k, n))
+        got = trng.site_uniforms(trng.make_key(seed), sample, depth,
+                                 purpose, k, n, device="cpu").numpy()
+        assert got.dtype == np.float32
+        assert np.array_equal(got, ref)
+
+    @pytest.mark.parametrize("offset,n,total", [(0, 16, 64), (8, 16, 64),
+                                                (100, 77, 4096)])
+    def test_lane_windows(self, offset, n, total):
+        jk, tk = jrng.make_key(9), trng.make_key(9)
+        ref = np.asarray(jrng.site_uniforms(
+            jk, 2, 3, jrng.LIGHT_SCATTER, 3, n, lane_offset=offset,
+            lane_total=total))
+        got = trng.site_uniforms(tk, 2, 3, trng.LIGHT_SCATTER, 3, n,
+                                 device="cpu", lane_offset=offset,
+                                 lane_total=total).numpy()
+        assert np.array_equal(got, ref)
+
+    def test_lane_ids(self):
+        ids = np.array([5, 3, 60, 0, 63], np.int32)
+        ref = np.asarray(jrng.site_uniforms(
+            jrng.make_key(5), 3, 1, jrng.LIGHT_UV, 2, 5,
+            lane_ids=jnp.asarray(ids), lane_total=64))
+        got = trng.site_uniforms(trng.make_key(5), 3, 1, trng.LIGHT_UV, 2, 5,
+                                 device="cpu", lane_ids=torch.as_tensor(ids),
+                                 lane_total=64).numpy()
+        assert np.array_equal(got, ref)
+
+    def test_site_key_rows_regenerate_tape(self):
+        """The (k0, k1, row) triples the CUDA kernel receives rebuild the
+        tape with the kernel's formula, mix32((row*total + lane) ^ k0, k1)."""
+        key = trng.make_key(3)
+        total = 96
+        ref = trng.site_uniforms(key, 4, 2, trng.LIGHT_UV, 4, total,
+                                 device="cpu")
+        lanes = torch.arange(total, dtype=torch.int64)
+        for k0, k1, row in trng.site_key_rows(key, 4, 2, trng.LIGHT_UV,
+                                              [2, 0, 3, 1]):
+            bits = trng._mix32(((row * total + lanes) & trng.MASK32) ^ k0,
+                               k1)
+            assert torch.equal(trng.bits_to_uniform(bits), ref[row])
