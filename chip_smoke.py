@@ -2,14 +2,17 @@
 
     python3 chip_smoke.py
 
-Drives the port's main forward path — the progressive Cornell render at
-512x512 through the hand-written CUDA eye-path kernel — and holds the
-kernel against its plain PyTorch version. It prints one line per phase,
-each with the seconds since the start:
+Drives the port's main paths — the progressive Cornell render at 512x512
+through the hand-written CUDA eye-path kernel, and the training step and
+the inverse fitter through its hand-written adjoint kernels — and holds
+every kernel against its plain PyTorch version. It prints one line per
+phase, each with the seconds since the start:
 
 1. ``device``: the card, and ``nvidia-smi``'s name and power limit;
-2. ``build``: nvcc builds every kernel into ``build/kernels/``; stale
-   ``lock`` files there are removed;
+2. ``build``: nvcc builds every kernel source into ``build/kernels/``,
+   one process per source, all at once; ptxas's registers, spills and
+   stack (local memory) per entry point; stale ``lock`` files there are
+   removed;
 3. ``kernel_vs_plain``: at 64x48 on cornell.scn, camera and ray mode,
    samples 0 and 1, with the default config (VPLs on) and with the CPU
    golden gains and stratified jitter: kernel and plain version on the same
@@ -23,8 +26,32 @@ each with the seconds since the start:
    through the plain version on the card under the protocol; ms per pass
    with CUDA events after a warm-up; the PPM written to a temporary
    directory;
-5. ``kernels``: one JSON line per the port's kernels, with launches on the
-   main path, ms per launch, the plain version's ms, and the bound.
+5. ``grad_vs_plain``: at 64x48 on cornell.scn, ``max_depth`` 7, four
+   cases (default config; VPLs off; fused l2; fused log): kernel and plain
+   version (autograd on the card) on the same inputs; the loss to 1e-5
+   relative; every gradient (p, rad, e, c, the VPL buffer, the rays) per
+   array within ``2e-3 |plain| + 2e-3 max|plain|``, and its largest
+   relative difference over the entries above 1e-3 of its largest
+   (``_max_rel``) at most 1e-3; the fused kernel's
+   radiance against ``trace_kernel``'s on the same rays (``exact_frac``,
+   under the radiance protocol); two launches on the same inputs give the
+   same bits;
+6. ``train_path``: at 512x512 on cornell.scn with ``IntegratorConfig()``
+   and mix32 seed 0: (a) the bench's training step, ``render_loss_grad(
+   spp=1, loss="l2", backend="auto")`` against a black target, 20 steps
+   after a warm-up with the counts set to 0 just before (one
+   ``fused_kernel`` launch per step, nothing else), ms per step, its
+   breakdown, and loss and gradients against the plain versions on the
+   card (the whole step against its plain autograd route, and the fused
+   kernel's wrapper against ``loss_grad_plain``); (b) ``InverseRenderer``
+   fitting the left wall's albedo for 8 steps (``l2``, fixed tape, spp 4:
+   four ``trace_kernel`` and four ``grad_kernel`` launches per step; the
+   loss falls), then one step with every default (``l2_unbiased``, spp 4:
+   eight of each); the first step of each fitter, ``render_loss_grad``
+   at spp 4 through the kernels, against its plain autograd route at
+   512x512, loss and gradients under the protocol of 5;
+7. ``kernels``: one JSON line with a row per kernel: launches on its
+   path, ms per launch, the plain version's ms, and the bound.
 
 The last line is ``{"ok": true, "device": {...}}``. Any failed check exits
 non-zero before it. Without a card, or without the package beside it, the
@@ -34,6 +61,7 @@ script exits non-zero and prints no result.
 from __future__ import annotations
 
 import json
+import math
 import os
 import subprocess
 import sys
@@ -65,6 +93,27 @@ OPS_ROOT = 20
 OPS_SEGMENT = 28
 OPS_SHADOW_SETUP = 30
 OPS_SCATTER = 45
+# The adjoint kernels do the eye-path kernel's work in their forward sweep,
+# then per unit of work in the reverse sweep (csrc/grad_kernel.cu, counted
+# in PERF.md): a hit segment's root and shading recomputed and their
+# adjoints (normal, hit point, root); a diffuse scatter recomputed and its
+# adjoint; and, for each shadow sample that reached the vertex, its set-up
+# recomputed and its adjoint. The warp reductions of the table gradients
+# are not counted.
+OPS_SEGMENT_ADJ = 100
+OPS_SCATTER_ADJ = 120
+OPS_SHADOW_ADJ = 85
+GRAD_W, GRAD_H = 64, 48
+TRAIN_W, TRAIN_H, TRAIN_STEPS, FIT_STEPS = 512, 512, 20, 8
+# The comparisons of the training path with its plain autograd routes:
+# the fused step's two, then the unfused (grad_kernel) steps' two.
+TRAIN_COMPARED = ("step", "loss_grad_plain", "fit_step_l2_spp4",
+                  "default_step_l2_unbiased_spp4")
+# Gradient protocol (the form of tests/test_pallas_grad.py:258), and a
+# bound on `_max_rel` (tests/test_pallas_grad.py:50): the absolute term
+# scales with an array's largest entry, which is loose for heavy-tailed
+# arrays such as the ray gradients; the relative one is not.
+GRAD_RTOL, GRAD_ATOL_REL, LOSS_RTOL, GRAD_MAX_REL = 2e-3, 2e-3, 1e-5, 1e-3
 
 
 class SmokeFailure(RuntimeError):
@@ -128,7 +177,8 @@ def phase_build() -> None:
     t = time.perf_counter()
     libs = _build.build_all()
     ptxas = {name: [ln.strip() for ln in log.splitlines()
-                    if "registers" in ln or "spill" in ln]
+                    if any(w in ln for w in ("entry function", "registers",
+                                             "spill", "stack frame"))]
              for name, log in _build.build_log.items()}
     phase("build", seconds=round(time.perf_counter() - t, 3),
           nvcc_seconds={k: round(v, 3)
@@ -293,11 +343,363 @@ def phase_main_path() -> dict:
             "max_abs_err": vs_plain["max_abs_err"]}
 
 
-def phase_kernels(main: dict, max_abs_err: float, device) -> None:
-    """Per-kernel line: times at the main path's shapes and the bound."""
+def grad_check(got, ref) -> dict:
+    """One gradient array against the plain version's: within
+    ``2e-3 |plain| + 2e-3 max|plain|`` everywhere, and ``_max_rel`` of
+    tests/test_pallas_grad.py (the largest relative difference over the
+    entries above 1e-3 of the largest) at most ``GRAD_MAX_REL``."""
+    got, ref = got.detach().double(), ref.detach().double()
+    err = (got - ref).abs()
+    scale = float(ref.abs().max()) if ref.numel() else 0.0
+    big = ref.abs() > 1e-3 * max(scale, 1e-9)
+    rel = (err / ref.abs().clamp(min=1e-6))[big]
+    max_rel = float(rel.max()) if rel.numel() else 0.0
+    ok = bool(torch.isfinite(got).all()) and bool(
+        (err <= GRAD_RTOL * ref.abs() + GRAD_ATOL_REL * scale).all()) and (
+        max_rel <= GRAD_MAX_REL)
+    return {"ok": ok, "max_rel": max_rel,
+            "max_abs_err": float(err.max()) if err.numel() else 0.0,
+            "max_abs": scale}
+
+
+def _grad_names(vpls) -> list[str]:
+    return (["p", "rad", "e", "c"]
+            + (["vpl_hp", "vpl_rad", "vpl_nl"] if vpls is not None else []))
+
+
+def phase_grad_vs_plain(device) -> float:
+    """The adjoint kernels against autograd of the plain tracer at 64x48;
+    the largest |kernel - plain| over every gradient array."""
+    from gpu_bidirectional_raytracer_tpu_torch import camera as cam_mod
+    from gpu_bidirectional_raytracer_tpu_torch import rng
+    from gpu_bidirectional_raytracer_tpu_torch.core.types import (
+        Camera,
+        IntegratorConfig,
+        Rays,
+    )
+    from gpu_bidirectional_raytracer_tpu_torch.integrators import light_tracer
+    from gpu_bidirectional_raytracer_tpu_torch.integrators.direct import (
+        static_light_indices,
+    )
+    from gpu_bidirectional_raytracer_tpu_torch.ops import pallas_grad as pg
+    from gpu_bidirectional_raytracer_tpu_torch.ops import pallas_trace as ops
+
+    orig, target, scene = _cornell(device)
+    w, h, n = GRAD_W, GRAD_H, GRAD_W * GRAD_H
+    cam = Camera.make(orig, target, w, h, device=device)
+    li = static_light_indices(scene)
+    key = rng.make_key(0)
+    ju = rng.site_uniforms(key, 0, 0, rng.CAM_JITTER, 2, n, device=device)
+    px, py = cam_mod.pixel_grid(w, h, device=device)
+    rays = cam_mod.primary_rays(cam, w, h, ju[0], ju[1], px, py)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(0)
+    cot = torch.rand((n, 3), generator=gen, device=device) * 2.0 - 1.0
+    tgt = torch.rand((n, 3), generator=gen, device=device) * 0.5
+    cases = {"default": (IntegratorConfig(), None),
+             "no_vpl": (IntegratorConfig(use_vpl=False, combine_half=False),
+                        None),
+             "fused_l2": (IntegratorConfig(), "l2"),
+             "fused_log": (IntegratorConfig(), "log")}
+    results, worst = {}, 0.0
+    for name, (cfg, loss) in cases.items():
+        vpls = (light_tracer.trace_light_paths(scene, cfg, li, key, 0)
+                if cfg.use_vpl else None)
+        vi = 0 if vpls is not None else None
+        scene_tab, vpl_tab, keys, n_rows = ops.launch_tables(
+            scene, cfg, li, key, 0, vpls, vi)
+        if loss is None:
+            def run(tracer):
+                with torch.enable_grad():
+                    sc, vb, sl, vl = pg.param_leaves(scene, vpls)
+                    o = rays.o.detach().clone().requires_grad_()
+                    d = rays.d.detach().clone().requires_grad_()
+                    rad = tracer(sc, cfg, li, Rays(o=o, d=d), key, 0,
+                                 vpls=vb, vlp_index=vi)
+                    value = (rad * cot).sum()
+                    grads = torch.autograd.grad(value, sl + vl + [o, d])
+                return rad.detach(), value.detach(), grads
+
+            rad_k, value_k, g_k = run(pg.trace_pallas_diff)
+            rad_p, value_p, g_p = run(pg.trace_diff_plain)
+            names = _grad_names(vpls) + ["ray_o", "ray_d"]
+            launch = lambda: pg.grad_launch(scene_tab, vpl_tab, keys,
+                                            n_rows, cfg, li, rays, cot)
+            radiance = protocol(rad_k, rad_p)
+        else:
+            value_k, gs_k, gv_k = pg.trace_pallas_loss_grad(
+                scene, cfg, li, rays, key, 0, tgt, vpls=vpls, vlp_index=vi,
+                loss=loss)
+            value_p, gs_p, gv_p = pg.loss_grad_plain(
+                scene, cfg, li, rays, key, 0, tgt, vpls=vpls, vlp_index=vi,
+                loss=loss)
+            g_k = [getattr(gs_k, k) for k in ("p", "rad", "e", "c")]
+            g_k += list(gv_k or [])
+            g_p = [getattr(gs_p, k) for k in ("p", "rad", "e", "c")]
+            g_p += list(gv_p or [])
+            names = _grad_names(vpls)
+            tk = torch.log1p(tgt) if loss == "log" else tgt
+            rad_fused = torch.empty((n, 3), dtype=torch.float32,
+                                    device=device)
+            pg.fused_launch(scene_tab, vpl_tab, keys, n_rows, cfg, li, rays,
+                            tk, loss, radiance_out=rad_fused)
+            rad_trace = ops.trace_pallas(scene, cfg, li, rays, key, 0,
+                                         vpls=vpls, vlp_index=vi)
+            launch = lambda: pg.fused_launch(scene_tab, vpl_tab, keys,
+                                             n_rows, cfg, li, rays, tk, loss)
+            radiance = protocol(rad_fused, rad_trace)
+        first, second = launch(), launch()
+        torch.cuda.synchronize()
+        same_bits = all(torch.equal(a, b) for a, b in zip(first, second))
+        grads = {k: grad_check(a, b) for k, a, b in zip(names, g_k, g_p)}
+        loss_rel = abs(float(value_k) - float(value_p)) / max(
+            abs(float(value_p)), 1e-30)
+        results[name] = {"loss": float(value_k), "loss_plain": float(value_p),
+                         "loss_rel": loss_rel, "radiance": radiance,
+                         "two_launches_same_bits": same_bits,
+                         "grads": grads}
+    phase("grad_vs_plain", width=w, height=h, max_depth=7, results=results)
+    for name, r in results.items():
+        check(r["loss_rel"] <= LOSS_RTOL,
+              f"grad_vs_plain {name}: loss off by {r['loss_rel']:.2e}")
+        check(r["radiance"]["finite"]
+              and r["radiance"]["bad_frac"] <= MAX_BAD_FRAC,
+              f"grad_vs_plain {name}: radiance {r['radiance']}")
+        check(r["two_launches_same_bits"],
+              f"grad_vs_plain {name}: two launches differ")
+        for k, g in r["grads"].items():
+            check(g["ok"], f"grad_vs_plain {name}: d{k} outside the "
+                           f"tolerance ({g})")
+            worst = max(worst, g["max_abs_err"])
+    return worst
+
+
+def phase_train_path() -> dict:
+    """The training step and the fitter at 512x512, through the entry
+    points as a user calls them (the default device is the card)."""
+    from gpu_bidirectional_raytracer_tpu_torch import camera as cam_mod
+    from gpu_bidirectional_raytracer_tpu_torch import rng
+    from gpu_bidirectional_raytracer_tpu_torch.core.types import (
+        Camera,
+        IntegratorConfig,
+    )
+    from gpu_bidirectional_raytracer_tpu_torch.diff import gradients as G
+    from gpu_bidirectional_raytracer_tpu_torch.integrators import light_tracer
+    from gpu_bidirectional_raytracer_tpu_torch.integrators.direct import (
+        static_light_indices,
+    )
+    from gpu_bidirectional_raytracer_tpu_torch.ops import pallas_grad as pg
+    from gpu_bidirectional_raytracer_tpu_torch.ops import pallas_trace as ops
+
+    orig, target, scene = _cornell()
+    cfg = IntegratorConfig()
+    w, h, n = TRAIN_W, TRAIN_H, TRAIN_W * TRAIN_H
+    cam = Camera.make(orig, target, w, h)
+    li = static_light_indices(scene)
+    key = rng.make_key(0)
+    black = torch.zeros((h, w, 3), dtype=torch.float32, device=scene.device)
+
+    # (a) The bench's step: l2 against a black target, spp 1, fresh key.
+    def step(i):
+        return G.render_loss_grad(scene, cam, rng.fold_in(key, i), black,
+                                  cfg, w, h, li, spp=1, loss="l2",
+                                  backend="auto")
+
+    step(0)
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    t = time.perf_counter()
+    start.record()
+    for i in range(TRAIN_STEPS):
+        loss_v, g = step(1 + i)
+    stop.record()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    step_launches = dict(ops.LAUNCHES)
+    ms_step = start.elapsed_time(stop) / TRAIN_STEPS
+    check(step_launches == {"trace_kernel": 0, "grad_kernel": 0,
+                            "fused_kernel": TRAIN_STEPS},
+          f"training step launches {step_launches} in {TRAIN_STEPS} steps")
+    check(bool(torch.isfinite(loss_v)) and all(
+        bool(torch.isfinite(getattr(g, k)).all())
+        for k in ("p", "rad", "e", "c")), "training step: non-finite")
+
+    # Where a step goes: the light subpaths (forward under autograd and
+    # the pull of the VPL cotangent), the tables, the fused kernel.
+    ju = rng.site_uniforms(key, 0, 0, rng.CAM_JITTER, 2, n,
+                           device=scene.device)
+    px, py = cam_mod.pixel_grid(w, h, device=scene.device)
+    rays = cam_mod.primary_rays(cam, w, h, ju[0], ju[1], px, py)
+
+    def light_fwd():
+        with torch.enable_grad():
+            sc, _, sl, _ = pg.param_leaves(scene)
+            return light_tracer.trace_light_paths(sc, cfg, li, key, 0), sl
+
+    def light_fwd_pull():
+        v, sl = light_fwd()
+        return torch.autograd.grad(
+            [v.hp, v.rad, v.nl], sl,
+            [torch.ones_like(v.hp), torch.ones_like(v.rad),
+             torch.ones_like(v.nl)], allow_unused=True)
+
+    vpls, _ = light_fwd()
+    vpls = vpls.__class__(hp=vpls.hp.detach(), rad=vpls.rad.detach(),
+                          nl=vpls.nl.detach(), valid=vpls.valid,
+                          sid=vpls.sid)
+
+    def tables():
+        with torch.enable_grad():
+            sc, vb, _, _ = pg.param_leaves(scene, vpls)
+            return ops.launch_tables(sc, cfg, li, key, 0, vb, 0)
+
+    scene_tab, vpl_tab, keys, n_rows = tables()
+    tgt = black.reshape(n, 3)
+    light_ms = cuda_ms(light_fwd, reps=10)
+    breakdown = {
+        "light_forward": light_ms,
+        "light_pullback": cuda_ms(light_fwd_pull, reps=10) - light_ms,
+        "tables": cuda_ms(tables, reps=10),
+        "fused_kernel": cuda_ms(lambda: pg.fused_launch(
+            scene_tab, vpl_tab, keys, n_rows, cfg, li, rays, tgt, "l2"),
+            reps=20),
+    }
+
+    # Loss and gradients against the plain versions on the card: the whole
+    # step against its plain autograd route, and the fused kernel's wrapper
+    # against `loss_grad_plain` on the step's rays and VPLs (the direct
+    # gradients and the VPL buffer's cotangent).
+    def compare(value_k, grads_k, value_p, grads_p, names):
+        return {"loss_rel": abs(float(value_k) - float(value_p))
+                / abs(float(value_p)),
+                "grads": {k: grad_check(a, b)
+                          for k, a, b in zip(names, grads_k, grads_p)}}
+
+    params = ("p", "rad", "e", "c")
+
+    def step_vs_plain(sc, k, tgt_img, spp, loss):
+        """`render_loss_grad` through the kernels against its plain
+        autograd route, at 512x512 on the same key."""
+        lk, gk = G.render_loss_grad(sc, cam, k, tgt_img, cfg, w, h, li,
+                                    spp, loss, "auto")
+        lp, gp = G.render_loss_grad(sc, cam, k, tgt_img, cfg, w, h, li,
+                                    spp, loss, "xla")
+        torch.cuda.synchronize()
+        return compare(lk, [getattr(gk, p) for p in params], lp,
+                       [getattr(gp, p) for p in params], params)
+
+    torch.cuda.reset_peak_memory_stats()
+    fk = pg.trace_pallas_loss_grad(scene, cfg, li, rays, key, 0, tgt,
+                                   vpls=vpls, vlp_index=0)
+    fp = pg.loss_grad_plain(scene, cfg, li, rays, key, 0, tgt, vpls=vpls,
+                            vlp_index=0)
+    vs_plain = {
+        # the bench's step (fused_kernel)
+        "step": step_vs_plain(scene, key, black, 1, "l2"),
+        "loss_grad_plain": compare(
+            fk[0], [getattr(fk[1], p) for p in params] + list(fk[2]),
+            fp[0], [getattr(fp[1], p) for p in params] + list(fp[2]),
+            _grad_names(vpls))}
+    del fk, fp
+
+    # (b) The fitter: the left wall's albedo from a target of the true
+    # scene (same key, spp 4), fixed tape, l2: the unfused route. Its
+    # first step, and the first step of the default fitter (l2_unbiased,
+    # resampled), against their plain autograd routes (grad_kernel).
+    target_img = G.render_radiance(scene, cam, key, cfg, w, h, li, spp=4)
+    c = scene.c.clone()
+    c[0] = torch.tensor([0.5, 0.5, 0.5], device=c.device)
+    wrong = scene.replace(c=c)
+    vs_plain["fit_step_l2_spp4"] = step_vs_plain(wrong, key, target_img, 4,
+                                                 "l2")
+    vs_plain["default_step_l2_unbiased_spp4"] = step_vs_plain(
+        scene, rng.fold_in(key, 0), target_img, 4, "l2_unbiased")
+    vs_plain["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    torch.cuda.empty_cache()
+
+    inv = G.InverseRenderer(scene=wrong, cam=cam, target=target_img,
+                            cfg=cfg, width=w, height=h, lr=0.05, spp=4,
+                            optimize=("c",), resample=False, loss="l2")
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    t = time.perf_counter()
+    losses = [inv.step() for _ in range(FIT_STEPS)]
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t
+    fit_launches = dict(ops.LAUNCHES)
+    inv_d = G.InverseRenderer(scene=scene, cam=cam, target=target_img,
+                              cfg=cfg, width=w, height=h)
+    ops.reset_launches()
+    default_loss = inv_d.step()
+    torch.cuda.synchronize()
+    default_launches = dict(ops.LAUNCHES)
+
+    phase("train_path", width=w, height=h, steps=TRAIN_STEPS,
+          launches=step_launches, ms_per_step=ms_step,
+          rays_per_s=n / (ms_step / 1e3), wall_s=round(wall, 4),
+          loss=float(loss_v), breakdown_ms=breakdown, vs_plain=vs_plain,
+          fit={"steps": FIT_STEPS, "losses": losses,
+               "launches": fit_launches, "s_per_step": fit_s / FIT_STEPS,
+               "left_wall_c": inv.scene.c[0].tolist()},
+          fit_default={"loss": default_loss, "launches": default_launches,
+                       "loss_kind": inv_d.loss})
+    for what in TRAIN_COMPARED:
+        r = vs_plain[what]
+        check(r["loss_rel"] <= LOSS_RTOL,
+              f"training {what} vs plain: loss off by {r['loss_rel']:.2e}")
+        for k, g in r["grads"].items():
+            check(g["ok"], f"training {what} vs plain: d{k} outside the "
+                           f"tolerance ({g})")
+    per_step = 4 * FIT_STEPS
+    check(fit_launches == {"trace_kernel": per_step, "grad_kernel": per_step,
+                           "fused_kernel": 0},
+          f"fitter launches {fit_launches} in {FIT_STEPS} steps")
+    check(all(math.isfinite(x) for x in losses), f"fitter losses {losses}")
+    check(losses[-1] < losses[0], f"fitter loss did not fall: {losses}")
+    check(default_launches == {"trace_kernel": 8, "grad_kernel": 8,
+                               "fused_kernel": 0},
+          f"default fitter step launches {default_launches}")
+    check(math.isfinite(default_loss), "default fitter step: loss")
+
+    def worst(whats):
+        return max(g["max_abs_err"] for what in whats
+                   for g in vs_plain[what]["grads"].values())
+
+    return {"step_launches": step_launches, "fit_launches": fit_launches,
+            "fused_err": worst(TRAIN_COMPARED[:2]),
+            "grad_err": worst(TRAIN_COMPARED[2:]),
+            "scene": scene, "cam": cam, "cfg": cfg, "li": li, "key": key,
+            "rays": rays, "vpls": vpls, "tables": (scene_tab, vpl_tab, keys,
+                                                  n_rows)}
+
+
+
+def _forward_ops(stats: dict, s: int) -> int:
+    """FP32 operations of the eye-path work in ``stats`` (path_tracer.trace
+    with_stats=True), as the eye-path kernel does it."""
+    return ((stats["extension_segments"] * s + stats["shadow_tests"])
+            * OPS_ROOT
+            + stats["hit_segments"] * OPS_SEGMENT
+            + stats["shadow_setups"] * OPS_SHADOW_SETUP
+            + stats["diffuse_vertices"] * OPS_SCATTER)
+
+
+def _bound(ops_total: int, bytes_total: int) -> dict:
+    t_ops = ops_total / PEAK_FP32_FLOPS * 1e3
+    t_bytes = bytes_total / PEAK_BYTES_PER_S * 1e3
+    return {"bound_ms": max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
+
+
+def phase_kernels(main: dict, train: dict, max_abs_err: float,
+                  grad_err: float, device) -> None:
+    """Per-kernel line: times at the main paths' shapes and the bounds."""
     from gpu_bidirectional_raytracer_tpu_torch import camera as cam_mod
     from gpu_bidirectional_raytracer_tpu_torch import rng
     from gpu_bidirectional_raytracer_tpu_torch.integrators import path_tracer
+    from gpu_bidirectional_raytracer_tpu_torch.ops import pallas_grad as pg
     from gpu_bidirectional_raytracer_tpu_torch.ops import pallas_trace as ops
     from gpu_bidirectional_raytracer_tpu_torch.render import progressive
 
@@ -325,17 +727,11 @@ def phase_kernels(main: dict, max_abs_err: float, device) -> None:
                                  state.sample, with_stats=True, **kw)
     s = scene.num_spheres
     n_vpl = cfg.vpl_depth * cfg.max_vlp if cfg.use_vpl else 0
-    ops_total = ((stats["extension_segments"] * s + stats["shadow_tests"])
-                 * OPS_ROOT
-                 + stats["hit_segments"] * OPS_SEGMENT
-                 + stats["shadow_setups"] * OPS_SHADOW_SETUP
-                 + stats["diffuse_vertices"] * OPS_SCATTER)
+    ops_total = _forward_ops(stats, s)
     k_rows = 2 + cfg.max_depth * (2 * max(len(li), 1) + 3)
-    bytes_total = (4 * 16 * (s + n_vpl) + 16 * k_rows + 4 * len(li)
-                   + 4 * 32 + 12 * n)
-    t_ops = ops_total / PEAK_FP32_FLOPS * 1e3
-    t_bytes = bytes_total / PEAK_BYTES_PER_S * 1e3
-    line = {"kernels": [{
+    tables_bytes = 4 * 16 * (s + n_vpl) + 4 * len(li)
+    bytes_total = tables_bytes + 16 * k_rows + 4 * 32 + 12 * n
+    rows = [{
         "name": "trace_kernel",
         "route": "cuda",
         "source": "gpu_bidirectional_raytracer_tpu_torch/csrc/trace_kernel.cu",
@@ -344,12 +740,80 @@ def phase_kernels(main: dict, max_abs_err: float, device) -> None:
         "max_abs_err": max(max_abs_err, main["max_abs_err"]),
         "ms": ms,
         "plain_ms": plain_ms,
-        "bound_ms": max(t_ops, t_bytes),
-        "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+        **_bound(ops_total, bytes_total),
         "library_ms": None,
         "work": {**stats, "fp32_ops": ops_total, "bytes": bytes_total},
-    }]}
-    print(json.dumps(line), flush=True)
+    }]
+
+    # The adjoint kernels at the training path's shapes: 512x512, sample 0
+    # of the mix32 seed-0 key, the VPLs of that sample.
+    t = train
+    scene, cfg, li, key, rays_t = (t["scene"], t["cfg"], t["li"], t["key"],
+                                   t["rays"])
+    vpls_t = t["vpls"]
+    scene_tab, vpl_tab, keys, n_rows = t["tables"]
+    n = rays_t.o.shape[0]
+    gen = torch.Generator(device=device)
+    gen.manual_seed(1)
+    cot = torch.rand((n, 3), generator=gen, device=device) * 2.0 - 1.0
+    black = torch.zeros((n, 3), dtype=torch.float32, device=device)
+    grad_ms = cuda_ms(lambda: pg.grad_launch(scene_tab, vpl_tab, keys,
+                                             n_rows, cfg, li, rays_t, cot),
+                      reps=20)
+    fused_ms = cuda_ms(lambda: pg.fused_launch(scene_tab, vpl_tab, keys,
+                                               n_rows, cfg, li, rays_t,
+                                               black, "l2"), reps=20)
+
+    def grad_plain():
+        with torch.enable_grad():
+            sc, vb, sl, vl = pg.param_leaves(scene, vpls_t)
+            rad = pg.trace_diff_plain(sc, cfg, li, rays_t, key, 0, vpls=vb,
+                                      vlp_index=0)
+            return torch.autograd.grad((rad * cot).sum(), sl + vl)
+
+    grad_plain_ms = cuda_ms(grad_plain, reps=3, warmup=1)
+    fused_plain_ms = cuda_ms(lambda: pg.loss_grad_plain(
+        scene, cfg, li, rays_t, key, 0, black, vpls=vpls_t, vlp_index=0),
+        reps=3, warmup=1)
+    _, st = path_tracer.trace(scene, cfg, li, rays_t, key, 0, vpls=vpls_t,
+                              vlp_index=0, with_stats=True)
+    adj_ops = (_forward_ops(st, s) + st["hit_segments"] * OPS_SEGMENT_ADJ
+               + st["diffuse_vertices"] * OPS_SCATTER_ADJ
+               + st["shadow_lit"] * OPS_SHADOW_ADJ)
+    n_blocks = (n + pg.BLOCK - 1) // pg.BLOCK
+    k_rows = cfg.max_depth * (2 * max(len(li), 1) + 3)
+    partial_bytes = 4 * 16 * n_blocks * (s + max(n_vpl, 1))
+    common_bytes = tables_bytes + 16 * k_rows + 24 * n + partial_bytes
+    grad_bytes = common_bytes + 12 * n + 24 * n      # cotangent, ray grads
+    fused_bytes = common_bytes + 12 * n + 4 * n_blocks   # targets, loss
+    work = {**st, "fp32_ops": adj_ops}
+    grad_src = "gpu_bidirectional_raytracer_tpu_torch/csrc/grad_kernel.cu"
+    rows += [{
+        "name": "grad_kernel",
+        "route": "cuda",
+        "source": grad_src,
+        "replaces": "gpu_bidirectional_raytracer_tpu/ops/pallas_grad.py:158",
+        "launches": t["fit_launches"]["grad_kernel"],
+        "max_abs_err": max(grad_err, t["grad_err"]),
+        "ms": grad_ms,
+        "plain_ms": grad_plain_ms,
+        **_bound(adj_ops, grad_bytes),
+        "library_ms": None,
+        "work": {**work, "bytes": grad_bytes},
+    }, {
+        "name": "fused_kernel",
+        "route": "cuda",
+        "source": grad_src,
+        "replaces": "gpu_bidirectional_raytracer_tpu/ops/pallas_grad.py:1215",
+        "launches": t["step_launches"]["fused_kernel"],
+        "max_abs_err": max(grad_err, t["fused_err"]),
+        "ms": fused_ms,
+        "plain_ms": fused_plain_ms,
+        **_bound(adj_ops, fused_bytes),
+        "library_ms": None,
+        "work": {**work, "bytes": fused_bytes},
+    }]
+    print(json.dumps({"kernels": rows}), flush=True)
 
 
 def main() -> int:
@@ -372,8 +836,10 @@ def main() -> int:
     try:
         phase_build()
         max_err = phase_kernel_vs_plain(device)
+        grad_err = phase_grad_vs_plain(device)
         main_res = phase_main_path()
-        phase_kernels(main_res, max_err, device)
+        train_res = phase_train_path()
+        phase_kernels(main_res, train_res, max_err, grad_err, device)
     except SmokeFailure as err:
         print(f"chip_smoke: FAILED: {err}", file=sys.stderr, flush=True)
         return 1

@@ -2,9 +2,11 @@
 
 The JAX package ``gpu_bidirectional_raytracer_tpu`` is the reference; this
 package mirrors its layout module for module and never imports it or JAX.
-Plain tensor code is PyTorch; the eye-path megakernel is CUDA C++ for
-Hopper (``csrc/trace_kernel.cu``), built with nvcc at first use and bound
-with ctypes (``ops/_build.py``). Entry points take a ``device`` that
+Plain tensor code is PyTorch; the eye-path megakernel
+(``csrc/trace_kernel.cu``) and its adjoint (``csrc/grad_kernel.cu``: the
+backward of the differentiable tracer and the fused loss-and-gradient
+step) are CUDA C++ for Hopper, built with nvcc at first use and bound with
+ctypes (``ops/_build.py``). Entry points take a ``device`` that
 defaults to ``"cuda"`` and raise when no card is present; pass
 ``device="cpu"`` to run the plain versions on the CPU.
 """
@@ -22,6 +24,11 @@ from gpu_bidirectional_raytracer_tpu_torch.core.types import (
     RenderState,
     Scene,
     VplBuffer,
+)
+from gpu_bidirectional_raytracer_tpu_torch.diff.gradients import (
+    InverseRenderer,
+    render_loss_grad,
+    render_radiance,
 )
 from gpu_bidirectional_raytracer_tpu_torch.render.progressive import (
     Renderer,
@@ -42,5 +49,6 @@ __all__ = [
     "Camera", "IntegratorConfig", "Rays", "RenderState", "Scene",
     "VplBuffer", "DIFF", "SPEC", "REFR", "LITE", "load_scene",
     "parse_scene", "write_scene", "cornell_box", "test_scene", "Renderer",
-    "init_state", "render_image",
+    "init_state", "render_image", "InverseRenderer", "render_loss_grad",
+    "render_radiance",
 ]

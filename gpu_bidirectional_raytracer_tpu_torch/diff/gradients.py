@@ -1,0 +1,335 @@
+"""Differentiable rendering: gradients of images w.r.t. scene parameters.
+
+Port of ``gpu_bidirectional_raytracer_tpu/diff/gradients.py`` on torch
+autograd, without the two straight-through carriers (``vis_grad_tau``,
+``sil_grad_tau``), which are not ported yet and raise.
+
+Differentiation policy (the JAX package's): discrete structure is stopped
+(hit ids, material and emitter masks, facing tests, occlusion, the Fresnel
+branch), hit distances are differentiable through the quadratic root of
+the hit sphere, and every sqrt and division on maskable data is guarded.
+In the plain torch tracer these follow from the code: booleans carry no
+gradient and `torch.where` routes it to the taken branch only.
+
+Backends: ``"auto"`` takes the CUDA kernels (`ops.pallas_grad`) for a
+scene on the card and the plain torch tracer on the CPU; ``"pallas"`` the
+kernels (whose wrappers run the plain versions on CPU tensors); ``"xla"``
+the plain torch tracer on any device; ``"mxu"`` is not ported.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable
+
+import numpy as np
+import torch
+from torch import Tensor
+
+from gpu_bidirectional_raytracer_tpu_torch import camera as cam_mod
+from gpu_bidirectional_raytracer_tpu_torch import rng
+from gpu_bidirectional_raytracer_tpu_torch.core.types import (
+    Camera,
+    IntegratorConfig,
+    Scene,
+)
+from gpu_bidirectional_raytracer_tpu_torch.integrators import light_tracer
+from gpu_bidirectional_raytracer_tpu_torch.integrators import path_tracer
+from gpu_bidirectional_raytracer_tpu_torch.integrators.direct import (
+    static_light_indices,
+)
+from gpu_bidirectional_raytracer_tpu_torch.ops import pallas_grad
+from gpu_bidirectional_raytracer_tpu_torch.ops.pallas_grad import (  # noqa: F401
+    LOSSES as _LOSSES,
+    PARAMS as _PARAMS,
+    l2_loss,    # the JAX module's losses, defined beside the fused kernel
+    log_loss,
+)
+
+_BACKENDS = ("auto", "pallas", "xla")
+
+
+def _resolve_backend(scene: Scene, backend: str) -> str:
+    if backend == "mxu":
+        raise NotImplementedError("backend 'mxu' (matmul sphere scans) is "
+                                  "not ported")
+    if backend not in _BACKENDS:
+        raise ValueError(f"unknown backend {backend!r}")
+    if backend == "auto":
+        return "pallas" if scene.device.type == "cuda" else "xla"
+    return backend
+
+
+def render_radiance_lanes(scene: Scene, cam: Camera, key: rng.Key,
+                          cfg: IntegratorConfig, width: int, height: int,
+                          light_idx: tuple[int, ...], spp: int = 1,
+                          backend: str = "auto",
+                          lane_offset: int | None = None,
+                          lane_count: int | None = None,
+                          lane_total: int | None = None) -> Tensor:
+    """Mean radiance ``[lane_count, 3]`` of global lanes ``[lane_offset,
+    lane_offset + lane_count)`` of a ``lane_total``-lane frame (default:
+    the whole frame). Every draw is a window of the global tape, so a
+    banded render equals the whole one. With VPLs the light subpaths are
+    re-traced inside the graph each sample, and the gather window is the
+    fresh ``[0, max_vlp)`` block."""
+    pallas_grad.check_supported(scene, cfg)
+    use_kernel = _resolve_backend(scene, backend) == "pallas"
+    dev = scene.device
+    if lane_count is None:
+        lane_offset, lane_count, lane_total = None, width * height, None
+    n = lane_count
+    if lane_offset is None:
+        px, py = cam_mod.pixel_grid(width, height, device=dev)
+    else:
+        ids = torch.arange(n, device=dev) + int(lane_offset)
+        px, py = ids % width, ids // width
+    acc = torch.zeros((n, 3), dtype=torch.float32, device=dev)
+    for s in range(spp):
+        jit_uv = rng.site_uniforms(key, s, 0, rng.CAM_JITTER, 2, n,
+                                   device=dev, lane_offset=lane_offset,
+                                   lane_total=lane_total)
+        rays = cam_mod.primary_rays(cam, width, height, jit_uv[0],
+                                    jit_uv[1], px, py)
+        if cfg.use_vpl and light_idx:
+            # Light subpaths are addressed by subpath id, not pixel lane:
+            # every band traces the same VPL set.
+            vpls = light_tracer.trace_light_paths(scene, cfg, light_idx,
+                                                  key, s)
+            vlp_index = 0
+        else:
+            vpls, vlp_index = None, None
+        tracer = (pallas_grad.trace_pallas_diff if use_kernel
+                  else path_tracer.trace)
+        acc = acc + tracer(scene, cfg, light_idx, rays, key, s, vpls=vpls,
+                           vlp_index=vlp_index, lane_offset=lane_offset,
+                           lane_total=lane_total)
+    return acc / spp
+
+
+def render_radiance(scene: Scene, cam: Camera, key: rng.Key,
+                    cfg: IntegratorConfig, width: int, height: int,
+                    light_idx: tuple[int, ...], spp: int = 1,
+                    backend: str = "auto") -> Tensor:
+    """Differentiable forward: mean radiance image ``[H, W, 3]``."""
+    rad = render_radiance_lanes(scene, cam, key, cfg, width, height,
+                                light_idx, spp, backend)
+    return rad.reshape(height, width, 3)
+
+
+def render_loss_grad(scene: Scene, cam: Camera, key: rng.Key,
+                     target: Tensor, cfg: IntegratorConfig, width: int,
+                     height: int, light_idx: tuple[int, ...], spp: int = 1,
+                     loss: str = "l2", backend: str = "auto"):
+    """``(loss, d loss / d scene)`` for an image loss; the gradients come
+    back as a :class:`Scene` with ``refl`` zeros.
+
+    ``loss``: ``'l2_unbiased'``, the product loss ``mean((A - t)(B - t))``
+    of two independent renders (the second on ``rng.fold_in(key,
+    0x5EED)``), or the single-render ``'l2'`` and ``'log'``. With the
+    kernels, l2/log at one sample per pixel run the fused step: one
+    kernel for the loss and the direct gradients."""
+    resolved = _resolve_backend(scene, backend)
+    if (loss in ("l2", "log") and resolved == "pallas" and spp == 1
+            and cfg.sil_grad_tau == 0.0
+            and scene.num_spheres <= pallas_grad.SPHERE_LIMIT):
+        return _render_loss_grad_fused(scene, cam, key, target, cfg, width,
+                                       height, light_idx, loss)
+    if loss != "l2_unbiased" and loss not in _LOSSES:
+        raise ValueError(f"unknown loss {loss!r}")
+    with torch.enable_grad():
+        sc, _, leaves, _ = pallas_grad.param_leaves(scene)
+
+        def render(k):
+            return render_radiance(sc, cam, k, cfg, width, height,
+                                   light_idx, spp, resolved)
+
+        if loss == "l2_unbiased":
+            a = render(key)
+            b = render(rng.fold_in(key, 0x5EED))
+            value = torch.mean((a - target) * (b - target))
+        else:
+            value = _LOSSES[loss](render(key), target)
+        grads = torch.autograd.grad(value, leaves, allow_unused=True)
+    return value.detach(), pallas_grad.scene_grads(scene, grads)
+
+
+def _render_loss_grad_fused(scene: Scene, cam: Camera, key: rng.Key,
+                            target: Tensor, cfg: IntegratorConfig,
+                            width: int, height: int,
+                            light_idx: tuple[int, ...], loss: str = "l2"):
+    """The fused l2/log step: one kernel for the loss and the direct
+    gradients (`ops.pallas_grad.trace_pallas_loss_grad`), with the VPL
+    buffer's cotangent pulled through `trace_light_paths` by autograd, so
+    the light-subpath chain contributes as in the unfused path."""
+    n = width * height
+    dev = scene.device
+    jit_uv = rng.site_uniforms(key, 0, 0, rng.CAM_JITTER, 2, n, device=dev)
+    px, py = cam_mod.pixel_grid(width, height, device=dev)
+    rays = cam_mod.primary_rays(cam, width, height, jit_uv[0], jit_uv[1],
+                                px, py)
+    tgt = target.reshape(n, 3)
+    if not (cfg.use_vpl and light_idx):
+        value, g, _ = pallas_grad.trace_pallas_loss_grad(
+            scene, cfg, light_idx, rays, key, 0, tgt, loss=loss)
+        return value, g
+    with torch.enable_grad():
+        sc, _, leaves, _ = pallas_grad.param_leaves(scene)
+        vpls = light_tracer.trace_light_paths(sc, cfg, light_idx, key, 0)
+    value, g, dvpl = pallas_grad.trace_pallas_loss_grad(
+        scene, cfg, light_idx, rays, key, 0, tgt,
+        vpls=dataclasses.replace(vpls, hp=vpls.hp.detach(),
+                                 rad=vpls.rad.detach(), nl=vpls.nl.detach()),
+        vlp_index=0, loss=loss)
+    pulled = torch.autograd.grad([vpls.hp, vpls.rad, vpls.nl], leaves,
+                                 list(dvpl), allow_unused=True)
+    g = g.replace(**{k: getattr(g, k) + v for k, v in zip(_PARAMS, pulled)
+                     if v is not None})
+    return value, g
+
+
+def pixel_grad_fd(scene: Scene, render_fn: Callable[[Scene], Tensor],
+                  param: str, index, eps: float = 1e-2) -> np.ndarray:
+    """Central finite difference of ``render_fn`` w.r.t. one scalar scene
+    entry (float64 numpy)."""
+    arr = getattr(scene, param)
+    up, dn = arr.clone(), arr.clone()
+    up[index] += eps
+    dn[index] -= eps
+    with torch.no_grad():
+        hi = render_fn(scene.replace(**{param: up}))
+        lo = render_fn(scene.replace(**{param: dn}))
+    return ((hi.cpu().numpy().astype(np.float64)
+             - lo.cpu().numpy().astype(np.float64)) / (2 * eps))
+
+
+class _Adam:
+    """``optax.adam(lr)`` (b1 0.9, b2 0.999, eps 1e-8), in optax's order
+    of operations, on a dict of tensors."""
+
+    def __init__(self, lr: float, params: dict[str, Tensor],
+                 b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8):
+        self.lr, self.b1, self.b2, self.eps = lr, b1, b2, eps
+        self.count = 0
+        self.mu = {k: torch.zeros_like(v) for k, v in params.items()}
+        self.nu = {k: torch.zeros_like(v) for k, v in params.items()}
+
+    def step(self, grads: dict[str, Tensor],
+             params: dict[str, Tensor]) -> dict[str, Tensor]:
+        b1, b2 = self.b1, self.b2
+        self.count += 1
+        # Bias corrections in float32, as optax takes decay**count.
+        c1 = 1.0 - torch.tensor(b1, dtype=torch.float32) ** self.count
+        c2 = 1.0 - torch.tensor(b2, dtype=torch.float32) ** self.count
+        out = {}
+        for k, g in grads.items():
+            self.mu[k] = (1.0 - b1) * g + b1 * self.mu[k]
+            self.nu[k] = (1.0 - b2) * (g * g) + b2 * self.nu[k]
+            mu_hat = self.mu[k] / c1.to(g.device)
+            nu_hat = self.nu[k] / c2.to(g.device)
+            update = -self.lr * (mu_hat / (torch.sqrt(nu_hat) + self.eps))
+            out[k] = params[k] + update
+        return out
+
+
+@dataclasses.dataclass
+class InverseRenderer:
+    """Gradient-descent scene fitting against a target image.
+
+    Each `step` moves every optimised scene parameter down the loss
+    gradient with Adam (optax's update, written out), then projects: radii
+    stay at or above ``min_radius``, albedo in [0, 1], emission at or
+    above 0.
+
+    Keys: the port has only the mix32 tape, so a step draws
+    ``rng.make_key(seed)``, folded with the step number when
+    ``resample``. The JAX fitter calls ``jax.random.key(seed)``, a
+    threefry key, so from the same seed the two fitters draw different
+    tapes; with mix32 keys replayed on the JAX side they take the same
+    steps (tests/test_torch_inverse.py).
+
+    The JAX fitter's carrier-tau annealing (``tau_anneal``,
+    ``anneal_steps``, ``anneal_stages``) scales ``sil_grad_tau`` and
+    ``vis_grad_tau`` only; it comes with those carriers (ROADMAP queue 1
+    item 9), which are not ported yet.
+    """
+
+    scene: Scene
+    cam: Camera
+    target: Tensor
+    cfg: IntegratorConfig
+    width: int
+    height: int
+    lr: float = 0.05
+    spp: int = 4
+    optimize: tuple[str, ...] = ("p", "rad")
+    seed: int = 0
+    resample: bool = True  # fresh tape per step vs one fixed tape
+    min_radius: float = 0.1
+    # Per-parameter gradient gate: {param: [S]-or-broadcastable
+    # multiplier}; 0 freezes a sphere's entry.
+    grad_mask: dict | None = None
+    loss: str | None = None  # default: 'l2_unbiased' when resampling,
+                             # 'l2' on a fixed tape
+    backend: str = "auto"    # 'auto': the CUDA kernels on the card, the
+                             # plain torch tracer on the CPU
+    # Plateau early stopping: after `patience` steps with less than
+    # `min_improve` relative improvement on the best loss, `should_stop`.
+    patience: int = 0           # 0 = off
+    min_improve: float = 1e-3
+    _opt_state: object = None
+    _step: int = 0
+
+    def __post_init__(self):
+        if self.loss is None:
+            self.loss = "l2_unbiased" if self.resample else "l2"
+        self.backend = _resolve_backend(self.scene, self.backend)
+        self.light_idx = static_light_indices(self.scene)
+        self._opt_state = _Adam(self.lr, self._params())
+        self.best_loss = float("inf")
+        self.best_scene = self.scene
+        self._stall = 0
+
+    def _params(self) -> dict[str, Tensor]:
+        return {k: getattr(self.scene, k) for k in self.optimize}
+
+    @property
+    def should_stop(self) -> bool:
+        """Plateau detector (see `patience`)."""
+        return self.patience > 0 and self._stall >= self.patience
+
+    def step(self) -> float:
+        key = rng.make_key(self.seed)
+        if self.resample:
+            key = rng.fold_in(key, self._step)
+        loss, grads = render_loss_grad(
+            self.scene, self.cam, key, self.target, self.cfg,
+            self.width, self.height, self.light_idx, self.spp, self.loss,
+            self.backend)
+        g = {k: getattr(grads, k) for k in self.optimize}
+        if self.grad_mask:
+            g = {k: (v * torch.as_tensor(
+                self.grad_mask[k], dtype=v.dtype, device=v.device).reshape(
+                (-1,) + (1,) * (v.dim() - 1)) if k in self.grad_mask else v)
+                for k, v in g.items()}
+        params = self._opt_state.step(g, self._params())
+        # Projection keeps geometry physical: a radius driven through zero
+        # turns the sphere inside out.
+        if "rad" in params:
+            params["rad"] = torch.clamp(params["rad"], min=self.min_radius)
+        if "c" in params:
+            params["c"] = torch.clamp(params["c"], 0.0, 1.0)
+        if "e" in params:
+            params["e"] = torch.clamp(params["e"], min=0.0)
+        prev_scene = self.scene          # the scene `loss` was measured at
+        self.scene = self.scene.replace(**params)
+        self._step += 1
+        lf = float(loss)
+        if lf < self.best_loss * (1.0 - self.min_improve):
+            self.best_loss = lf
+            self.best_scene = prev_scene
+            self._stall = 0
+        else:
+            self.best_loss = min(self.best_loss, lf)
+            self._stall += 1
+        return lf

@@ -50,16 +50,19 @@ def _segments(target: Tensor, hp: Tensor):
 
 def _count_shadow_work(work: dict, scene: Scene, hp: Tensor, sdir: Tensor,
                        maxt: Tensor, set_up: Tensor, cast: Tensor,
-                       vacuum: bool) -> None:
+                       lit: Tensor, vacuum: bool) -> None:
     """Adds one NEE term's shadow work per lane ``[N]`` to ``work``: the
     samples set up (``set_up [N, K]``), the shadow rays cast (``cast [N,
-    K]``) and the sphere tests those rays make before their first blocker.
+    K]``), the sphere tests those rays make before their first blocker,
+    and the samples that reach the vertex (``lit [N, K]``: the ones the
+    adjoint kernel differentiates).
     """
     tests = isect.anyhit_tests(
         scene, hp[:, None, :].expand_as(sdir).reshape(-1, 3),
         sdir.reshape(-1, 3), maxt.reshape(-1), vacuum).reshape(cast.shape)
     for name, per_slot in (("shadow_setups", set_up), ("shadow_rays", cast),
-                           ("shadow_tests", torch.where(cast, tests, 0))):
+                           ("shadow_tests", torch.where(cast, tests, 0)),
+                           ("shadow_lit", lit)):
         work[name] = work.get(name, 0) + per_slot.sum(dim=-1)
 
 
@@ -96,7 +99,7 @@ def sample_direct(scene: Scene, cfg: IntegratorConfig,
     contrib = torch.where(mask[..., None], contrib, torch.zeros_like(contrib))
     if work is not None:
         _count_shadow_work(work, scene, hp, sdir, maxt,
-                           torch.ones_like(cast), cast, vacuum=False)
+                           torch.ones_like(cast), cast, mask, vacuum=False)
     for slot in range(len(light_idx)):
         out = out + contrib[:, slot]
     return out
@@ -142,7 +145,8 @@ def gather_vpls(scene: Scene, cfg: IntegratorConfig, vpls: VplBuffer,
     contrib = torch.where(mask[..., None], contrib, torch.zeros_like(contrib))
     if work is not None:
         _count_shadow_work(work, scene, hp, sdir, maxt,
-                           w_valid[None, :].expand_as(cast), cast, vacuum=True)
+                           w_valid[None, :].expand_as(cast), cast, mask,
+                           vacuum=True)
     total = contrib[:, 0]
     for v in range(1, k):
         total = total + contrib[:, v]

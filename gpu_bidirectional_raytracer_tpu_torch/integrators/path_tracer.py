@@ -46,8 +46,9 @@ def trace(scene: Scene, cfg: IntegratorConfig, light_idx: tuple[int, ...],
     ``hit_segments`` (of those, the ones that hit and are shaded),
     ``diffuse_vertices`` (NEE and diffuse scatter), ``shadow_setups``
     (light samples and valid VPL slots set up), ``shadow_rays`` (those
-    that face the vertex and are cast) and ``shadow_tests`` (the
-    ray-sphere tests of those rays up to their first blocker).
+    that face the vertex and are cast), ``shadow_tests`` (the
+    ray-sphere tests of those rays up to their first blocker) and
+    ``shadow_lit`` (the cast samples that no sphere blocks).
     """
     n = rays.o.shape[0]
     dev = rays.o.device
@@ -65,7 +66,7 @@ def trace(scene: Scene, cfg: IntegratorConfig, light_idx: tuple[int, ...],
     alive = torch.ones((n,), dtype=torch.bool, device=dev)
     stats = {k: torch.zeros((), dtype=torch.int64, device=dev) for k in (
         "extension_segments", "hit_segments", "diffuse_vertices",
-        "shadow_setups", "shadow_rays", "shadow_tests")}
+        "shadow_setups", "shadow_rays", "shadow_tests", "shadow_lit")}
 
     for depth in range(cfg.max_depth):
         hit, t, hit_id = isect.intersect(scene, o, d)

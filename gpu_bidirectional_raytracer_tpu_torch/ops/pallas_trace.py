@@ -36,7 +36,9 @@ from gpu_bidirectional_raytracer_tpu_torch.core.types import (
 from gpu_bidirectional_raytracer_tpu_torch.integrators import path_tracer
 from gpu_bidirectional_raytracer_tpu_torch.integrators.direct import vpl_window
 
-LAUNCHES = {"trace_kernel": 0}
+# Launches of each CUDA kernel, counted where the kernel is launched
+# (`ops.pallas_grad` counts the adjoint kernels here too).
+LAUNCHES = {"trace_kernel": 0, "grad_kernel": 0, "fused_kernel": 0}
 
 _CAM_ROWS = 2                 # tape rows of the camera jitter
 _SMEM_LIMIT = 48 * 1024       # static shared-memory budget of one block
@@ -118,8 +120,8 @@ def _camera_table(cam: Camera, cfg: IntegratorConfig, width: int,
 
 class TraceLaunch:
     """One prepared launch of the kernel: its tables on the card, its
-    output and its C arguments. Calling it launches the kernel (without
-    counting; the wrappers count their launches)."""
+    output and its C arguments. Calling it launches the kernel and adds
+    one to ``LAUNCHES["trace_kernel"]``."""
 
     def __init__(self, tables: list[Tensor], out: Tensor, args: tuple):
         self.tables = tables    # keeps every pointer in `args` alive
@@ -132,42 +134,59 @@ class TraceLaunch:
         rc = _build.load("trace_kernel")(*self.args)
         if rc != 0:
             raise RuntimeError(f"trace_kernel launch failed: CUDA error {rc}")
+        LAUNCHES["trace_kernel"] += 1
         return self.out
 
 
-def prepare_launch(scene: Scene, cfg: IntegratorConfig,
-                   light_idx: tuple[int, ...], key: rng.Key, sample: int,
-                   vpls: VplBuffer | None, vlp_index: int | None, n: int, *,
-                   cam_tab: Tensor | None = None, width: int = 0,
-                   rays: Rays | None = None, lane_offset: int = 0,
-                   lane_total: int | None = None) -> TraceLaunch:
-    """Check the inputs and build the tables of one kernel launch."""
+def launch_tables(scene: Scene, cfg: IntegratorConfig,
+                  light_idx: tuple[int, ...], key: rng.Key, sample: int,
+                  vpls: VplBuffer | None, vlp_index: int | None,
+                  cam_jitter: bool = False):
+    """``(scene_tab, vpl_tab, keys, n_rows)`` of one launch on the card.
+    The two float tables are differentiable functions of the scene and
+    the VPL buffer (`ops.pallas_grad` pulls gradients back through them).
+    """
     dev = scene.device
     if dev.type != "cuda":
-        raise ValueError(f"trace_kernel runs on a CUDA device, got {dev}")
+        raise ValueError(f"the CUDA kernels run on a CUDA device, got {dev}")
     if any(not 0 <= i < scene.num_spheres for i in light_idx):
         raise ValueError(f"light indices {light_idx} out of range for "
                          f"{scene.num_spheres} spheres")
-    scene_tab = _scene_table(scene)
-    vpl_tab = _vpl_table(cfg, vpls, vlp_index, dev)
     keys, n_rows = _key_table(cfg, light_idx, key, sample,
-                              cam_jitter=cam_tab is not None, device=dev)
+                              cam_jitter=cam_jitter, device=dev)
+    return (_scene_table(scene), _vpl_table(cfg, vpls, vlp_index, dev),
+            keys, n_rows)
+
+
+def check_rays(o: Tensor, d: Tensor, n: int, dev) -> None:
+    for t in (o, d):
+        if (t.device != dev or t.dtype != torch.float32
+                or t.shape != (n, 3) or not t.is_contiguous()):
+            raise ValueError("rays must be contiguous float32 [N, 3] "
+                             f"tensors on {dev}")
+
+
+def make_launch(scene_tab: Tensor, vpl_tab: Tensor, keys: Tensor,
+                n_rows: int, cfg: IntegratorConfig,
+                light_idx: tuple[int, ...], n: int, *,
+                cam_tab: Tensor | None = None, width: int = 0,
+                rays: Rays | None = None, lane_offset: int = 0,
+                lane_total: int | None = None) -> TraceLaunch:
+    """The launch of `trace_kernel` on tables already on the card."""
+    dev = scene_tab.device
     smem = 4 * (scene_tab.numel() + vpl_tab.numel() + keys.numel())
     if smem > _SMEM_LIMIT:
         raise ValueError(f"trace_kernel tables need {smem} bytes of shared "
                          f"memory, above {_SMEM_LIMIT}")
+    scene_tab, vpl_tab = scene_tab.detach(), vpl_tab.detach()
     tables = [scene_tab, vpl_tab, keys]
     if cam_tab is not None:
         tables.append(cam_tab)
     if rays is not None:
-        for t in (rays.o, rays.d):
-            if (t.device != dev or t.dtype != torch.float32
-                    or t.shape != (n, 3) or not t.is_contiguous()):
-                raise ValueError("rays must be contiguous float32 [N, 3] "
-                                 f"tensors on {dev}")
+        check_rays(rays.o, rays.d, n, dev)
         tables += [rays.o, rays.d]
     out = torch.empty((n, 3), dtype=torch.float32, device=dev)
-    args = (scene_tab.data_ptr(), scene.num_spheres,
+    args = (scene_tab.data_ptr(), scene_tab.shape[0],
             vpl_tab.data_ptr(), vpl_tab.shape[0],
             keys.data_ptr(), n_rows, len(light_idx),
             None if cam_tab is None else cam_tab.data_ptr(),
@@ -182,6 +201,21 @@ def prepare_launch(scene: Scene, cfg: IntegratorConfig,
     return TraceLaunch(tables, out, args)
 
 
+def prepare_launch(scene: Scene, cfg: IntegratorConfig,
+                   light_idx: tuple[int, ...], key: rng.Key, sample: int,
+                   vpls: VplBuffer | None, vlp_index: int | None, n: int, *,
+                   cam_tab: Tensor | None = None, width: int = 0,
+                   rays: Rays | None = None, lane_offset: int = 0,
+                   lane_total: int | None = None) -> TraceLaunch:
+    """Check the inputs and build the tables of one kernel launch."""
+    scene_tab, vpl_tab, keys, n_rows = launch_tables(
+        scene, cfg, light_idx, key, sample, vpls, vlp_index,
+        cam_jitter=cam_tab is not None)
+    return make_launch(scene_tab, vpl_tab, keys, n_rows, cfg, light_idx, n,
+                       cam_tab=cam_tab, width=width, rays=rays,
+                       lane_offset=lane_offset, lane_total=lane_total)
+
+
 def prepare_camera_launch(scene: Scene, cfg: IntegratorConfig,
                           light_idx: tuple[int, ...], cam: Camera,
                           width: int, height: int, key: rng.Key,
@@ -191,12 +225,6 @@ def prepare_camera_launch(scene: Scene, cfg: IntegratorConfig,
     return prepare_launch(
         scene, cfg, light_idx, key, sample, vpls, vlp_index, width * height,
         cam_tab=_camera_table(cam, cfg, width, height, sample), width=width)
-
-
-def _launch(call: TraceLaunch) -> Tensor:
-    out = call()
-    LAUNCHES["trace_kernel"] += 1
-    return out
 
 
 def trace_camera_plain(scene: Scene, cfg: IntegratorConfig,
@@ -229,9 +257,8 @@ def trace_pallas_camera(scene: Scene, cfg: IntegratorConfig,
     if scene.device.type == "cpu":
         return trace_camera_plain(scene, cfg, light_idx, cam, width, height,
                                   key, sample, vpls, vlp_index)
-    return _launch(prepare_camera_launch(scene, cfg, light_idx, cam, width,
-                                         height, key, sample, vpls,
-                                         vlp_index))
+    return prepare_camera_launch(scene, cfg, light_idx, cam, width, height,
+                                 key, sample, vpls, vlp_index)()
 
 
 def trace_pallas(scene: Scene, cfg: IntegratorConfig,
@@ -248,7 +275,7 @@ def trace_pallas(scene: Scene, cfg: IntegratorConfig,
                                  lane_offset=lane_offset,
                                  lane_total=lane_total)
     n = rays.o.shape[0]
-    return _launch(prepare_launch(
+    return prepare_launch(
         scene, cfg, light_idx, key, sample, vpls, vlp_index, n, rays=rays,
         lane_offset=lane_offset or 0,
-        lane_total=n if lane_total is None else lane_total))
+        lane_total=n if lane_total is None else lane_total)()

@@ -158,6 +158,8 @@ def test_stats_count_useful_work():
     assert 0 < tstats["shadow_rays"] < tstats["shadow_setups"]
     assert (tstats["shadow_rays"] <= tstats["shadow_tests"]
             < s * tstats["shadow_rays"])
+    # The cast samples no sphere blocks: the ones the adjoint differentiates.
+    assert 0 < tstats["shadow_lit"] <= tstats["shadow_rays"]
 
 
 @pytest.mark.parametrize("vacuum", [False, True])

@@ -1,15 +1,19 @@
-"""Where a progressive pass of the PyTorch port spends its time on the card.
+"""Where a progressive pass or a training step of the PyTorch port spends
+its time on the card.
 
-    python3 tools/profile_torch_pass.py [--size 512] [--passes 20]
+    python3 tools/profile_torch_pass.py [--size 512] [--passes 20] [--train]
 
-Renders the Cornell box with the port's `Renderer` on the card, warms up,
-times ``--passes`` passes with CUDA events, then traces as many again with
-``torch.profiler`` (CPU and CUDA activities) and prints one JSON line: the
-time per pass without and with the profiler, the device time per pass
-summed over kernels, copies and sets, the device's idle share (against the
-unprofiled time, since the profiler slows the host), the number of device
-operations per pass, and the ten that take the most time. Needs a card;
-imports no JAX.
+Without ``--train``: renders the Cornell box with the port's `Renderer`
+on the card. With ``--train``: runs the training step the JAX package's
+bench times, `render_loss_grad` (fused l2, spp 1, ``IntegratorConfig()``)
+against a black target, on a fresh mix32 key each step. Either way it
+warms up, times ``--passes`` passes or steps with CUDA events, then traces
+as many again with ``torch.profiler`` (CPU and CUDA activities) and prints
+one JSON line: the time per pass without and with the profiler, the
+device time per pass summed over kernels, copies and sets, the device's
+idle share (against the unprofiled time, since the profiler slows the
+host), the number of device operations per pass, and the ten that take
+the most time. Needs a card; imports no JAX.
 """
 
 from __future__ import annotations
@@ -25,27 +29,67 @@ import torch
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
+def _passes(scene, orig, target, size):
+    """``run(k)``: k progressive passes of the `Renderer`."""
+    from gpu_bidirectional_raytracer_tpu_torch.render.progressive import Renderer
+
+    r = Renderer(scene, orig, target, size, size)
+    return r.render
+
+
+def _train_steps(scene, orig, target, size):
+    """``run(k)``: k fused training steps of `render_loss_grad`, each on a
+    fresh key, against a black target (the JAX bench's step)."""
+    from gpu_bidirectional_raytracer_tpu_torch import rng
+    from gpu_bidirectional_raytracer_tpu_torch.core.types import (
+        Camera,
+        IntegratorConfig,
+    )
+    from gpu_bidirectional_raytracer_tpu_torch.diff.gradients import (
+        render_loss_grad,
+    )
+    from gpu_bidirectional_raytracer_tpu_torch.integrators.direct import (
+        static_light_indices,
+    )
+
+    cfg = IntegratorConfig()
+    cam = Camera.make(orig, target, size, size)
+    li = static_light_indices(scene)
+    key = rng.make_key(0)
+    black = torch.zeros((size, size, 3), device=scene.device)
+    count = [0]
+
+    def run(k):
+        for _ in range(k):
+            count[0] += 1
+            render_loss_grad(scene, cam, rng.fold_in(key, count[0]), black,
+                             cfg, size, size, li, spp=1, loss="l2")
+    return run
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--size", type=int, default=512)
     ap.add_argument("--passes", type=int, default=20)
+    ap.add_argument("--train", action="store_true",
+                    help="profile the fused training step, not a pass")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("profile_torch_pass: no CUDA device", file=sys.stderr)
         return 1
     sys.path.insert(0, REPO)
-    from gpu_bidirectional_raytracer_tpu_torch.render.progressive import Renderer
     from gpu_bidirectional_raytracer_tpu_torch.scene.parser import load_scene
 
     orig, target, scene = load_scene(
         os.path.join(REPO, "assets", "scenes", "cornell.scn"))
-    r = Renderer(scene, orig, target, args.size, args.size)
-    r.render(6)
+    run = (_train_steps if args.train else _passes)(scene, orig, target,
+                                                    args.size)
+    run(6)
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     stop = torch.cuda.Event(enable_timing=True)
     start.record()
-    r.render(args.passes)
+    run(args.passes)
     stop.record()
     torch.cuda.synchronize()
     ms_per_pass = start.elapsed_time(stop) / args.passes
@@ -53,7 +97,7 @@ def main() -> int:
             torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
         t = time.perf_counter()
-        r.render(args.passes)
+        run(args.passes)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t
     # Device-side records only (kernels, copies, sets): a host operator's
@@ -68,6 +112,7 @@ def main() -> int:
     device_ms = device_us / args.passes / 1e3
     print(json.dumps({
         "device": torch.cuda.get_device_name(0),
+        "what": "train_step" if args.train else "render_pass",
         "size": args.size, "passes": args.passes,
         "ms_per_pass": ms_per_pass,
         "profiled_wall_ms_per_pass": wall_ms,
