@@ -2,11 +2,15 @@
 
     python3 chip_smoke.py
 
-Drives the port's main paths — the progressive Cornell render at 512x512
-through the hand-written CUDA eye-path kernel, and the training step and
-the inverse fitter through its hand-written adjoint kernels — and holds
-every kernel against its plain PyTorch version. It prints one line per
-phase, each with the seconds since the start:
+Drives the port's main paths: the progressive Cornell render at 512x512
+through the hand-written CUDA eye-path kernel; the training step and the
+inverse fitter through its hand-written adjoint kernels; and the
+many-sphere route on complex.scn (783 spheres) at 512x384, the render
+through the per-depth bounce kernel and the training step through the fact
+kernel and the re-walk. It holds every kernel against its plain PyTorch
+version and prints one line per phase, each with the seconds since the
+start. The launch counts a phase reads are set to 0 just before it drives
+its path.
 
 1. ``device``: the card, and ``nvidia-smi``'s name and power limit;
 2. ``build``: nvcc builds every kernel source into ``build/kernels/``,
@@ -15,43 +19,65 @@ phase, each with the seconds since the start:
    removed;
 3. ``kernel_vs_plain``: at 64x48 on cornell.scn, camera and ray mode,
    samples 0 and 1, with the default config (VPLs on) and with the CPU
-   golden gains and stratified jitter: kernel and plain version on the same
-   inputs,
-   under the radiance protocol (a pixel is bad if any channel differs by
-   more than 2e-3 + 2e-3*|ref|; at most 3.5% bad pixels);
-4. ``main_path``: ``Renderer(cornell.scn, 512x512, IntegratorConfig(),
-   seed=0, device="cuda")`` for 32 passes with the launch counts set to 0
-   just before and read just after (one launch per pass); image checks
-   (finite, mean > 0, left wall red, right wall blue); the same 32 passes
-   through the plain version on the card under the protocol; ms per pass
-   with CUDA events after a warm-up; the PPM written to a temporary
-   directory;
-5. ``grad_vs_plain``: at 64x48 on cornell.scn, ``max_depth`` 7, four
+   golden gains and stratified jitter: kernel and plain version on the
+   same inputs, under the radiance protocol (a pixel is bad if any channel
+   differs by more than 2e-3 + 2e-3*|ref|; at most 3.5% bad pixels);
+4. ``grad_vs_plain``: at 64x48 on cornell.scn, ``max_depth`` 7, four
    cases (default config; VPLs off; fused l2; fused log): kernel and plain
    version (autograd on the card) on the same inputs; the loss to 1e-5
    relative; every gradient (p, rad, e, c, the VPL buffer, the rays) per
    array within ``2e-3 |plain| + 2e-3 max|plain|``, and its largest
    relative difference over the entries above 1e-3 of its largest
-   (``_max_rel``) at most 1e-3; the fused kernel's
-   radiance against ``trace_kernel``'s on the same rays (``exact_frac``,
-   under the radiance protocol); two launches on the same inputs give the
-   same bits;
-6. ``train_path``: at 512x512 on cornell.scn with ``IntegratorConfig()``
-   and mix32 seed 0: (a) the bench's training step, ``render_loss_grad(
-   spp=1, loss="l2", backend="auto")`` against a black target, 20 steps
-   after a warm-up with the counts set to 0 just before (one
+   (``_max_rel``) at most 1e-3; the fused kernel's radiance against
+   ``trace_kernel``'s on the same rays (``exact_frac``, under the radiance
+   protocol); two launches on the same inputs give the same bits;
+5. ``tape_vs_plain``: a threefry key (the fitter's), whose tape the
+   kernels read streamed from the card, at 64x48 on cornell.scn:
+   ``trace_kernel`` in camera and ray mode under the radiance protocol,
+   ``grad_kernel`` and ``fused_kernel`` against autograd of the plain
+   tracer under the gradient protocol of 4; and the tape built on the
+   card against the same tape built on the CPU, bit for bit;
+6. ``bounce_vs_plain``: at 64x48, depth 7, on complex.scn (mix32 and
+   threefry keys) and on cornell.scn with ``direct_only``: each depth's
+   ``bounce_kernel`` launch against ``bounce_plain`` on the same state
+   (``depth_exact_frac``); the whole trace against the full-scan plain
+   tracer under the radiance protocol; two traces with the same bits; the
+   ``aux_kernel`` facts against the plain collector (the hit-id mismatch,
+   and the occlusion mismatch over the entries either side reached, each
+   at most 3.5%); on complex.scn the re-walk's gradients from the
+   kernel's facts against autograd of the plain tracer, under 4's
+   gradient protocol;
+7. ``main_path``: ``Renderer(cornell.scn, 512x512, IntegratorConfig(),
+   seed=0)`` for 32 passes (one ``trace_kernel`` launch per pass); image
+   checks (finite, mean > 0, left wall red, right wall blue); the same
+   passes through the plain version on the card under the protocol; ms
+   per pass with CUDA events after a warm-up; the PPM written to a
+   temporary directory;
+8. ``train_path``: at 512x512 on cornell.scn with ``IntegratorConfig()``:
+   (a) the bench's training step, ``render_loss_grad(spp=1, loss="l2",
+   backend="auto")`` against a black target on mix32 keys, 20 steps (one
    ``fused_kernel`` launch per step, nothing else), ms per step, its
    breakdown, and loss and gradients against the plain versions on the
-   card (the whole step against its plain autograd route, and the fused
-   kernel's wrapper against ``loss_grad_plain``); (b) ``InverseRenderer``
-   fitting the left wall's albedo for 8 steps (``l2``, fixed tape, spp 4:
-   four ``trace_kernel`` and four ``grad_kernel`` launches per step; the
-   loss falls), then one step with every default (``l2_unbiased``, spp 4:
-   eight of each); the first step of each fitter, ``render_loss_grad``
-   at spp 4 through the kernels, against its plain autograd route at
-   512x512, loss and gradients under the protocol of 5;
-7. ``kernels``: one JSON line with a row per kernel: launches on its
-   path, ms per launch, the plain version's ms, and the bound.
+   card; (b) ``InverseRenderer`` (threefry keys) fitting the left wall's
+   albedo for 8 steps (``l2``, fixed tape, spp 4: four ``trace_kernel``
+   and four ``grad_kernel`` launches per step; the loss falls), then one
+   step with every default (``l2_unbiased``, spp 4: eight of each); the
+   first step of each fitter against its plain autograd route at 512x512;
+9. ``complex_path``: ``Renderer(complex.scn, 512x384, IntegratorConfig(),
+   backend="auto")`` for 8 passes: 7 ``bounce_kernel`` launches per pass
+   and nothing else; image checks; the same 8 passes in 96-row bands
+   (``tile_rows=96``) equal to the untiled ones bit for bit; one pass
+   against one pass of the plain banded program (``backend="xla"``) under
+   the protocol; ms per pass with CUDA events;
+10. ``complex_train``: ``render_loss_grad(backend="pallas")`` on
+   complex.scn at 512x384, l2 against black, spp 1, 3 steps: 7
+   ``aux_kernel`` launches per step and nothing else; ms per step, peak
+   GiB; the step against ``backend="xla"`` (plain full-scan autograd) at
+   128x96, and at 512x384 the re-walk from the kernel's facts against the
+   re-walk from the plain collector's, under 4's gradient protocol;
+11. ``kernels``: one JSON line with a row per kernel (five): launches on
+   its path, ms per launch, the plain version's ms, and the bound; the
+   bounce kernel's row also times 128, 256 and 512 threads per block.
 
 The last line is ``{"ok": true, "device": {...}}``. Any failed check exits
 non-zero before it. Without a card, or without the package beside it, the
@@ -105,6 +131,13 @@ OPS_SCATTER_ADJ = 120
 OPS_SHADOW_ADJ = 85
 GRAD_W, GRAD_H = 64, 48
 TRAIN_W, TRAIN_H, TRAIN_STEPS, FIT_STEPS = 512, 512, 20, 8
+# The many-sphere route: complex.scn (783 spheres) at the size of the JAX
+# package's bench leg (bench.py:262), 7 depths per pass.
+COMPLEX = os.path.join(os.path.dirname(SCENE), "complex.scn")
+COMPLEX_W, COMPLEX_H, COMPLEX_PASSES, COMPLEX_TILE = 512, 384, 8, 96
+COMPLEX_STEPS = 3
+COMPLEX_GRAD_W, COMPLEX_GRAD_H = 128, 96
+BOUNCE_BLOCKS = (128, 256, 512)
 # The comparisons of the training path with its plain autograd routes:
 # the fused step's two, then the unfused (grad_kernel) steps' two.
 TRAIN_COMPARED = ("step", "loss_grad_plain", "fit_step_l2_spp4",
@@ -129,6 +162,15 @@ def phase(label: str, /, **fields) -> None:
 def check(ok: bool, what: str) -> None:
     if not ok:
         raise SmokeFailure(what)
+
+
+def counts(**launched) -> dict:
+    """The launch counts of every kernel: those given, the others 0."""
+    from gpu_bidirectional_raytracer_tpu_torch.ops.pallas_trace import (
+        LAUNCHES,
+    )
+
+    return {name: launched.get(name, 0) for name in LAUNCHES}
 
 
 def protocol(got, ref) -> dict:
@@ -187,10 +229,10 @@ def phase_build() -> None:
           ptxas=ptxas)
 
 
-def _cornell(device="cuda"):
+def _scene_at(path=SCENE, device="cuda"):
     from gpu_bidirectional_raytracer_tpu_torch.scene.parser import load_scene
 
-    return load_scene(SCENE, device=device)
+    return load_scene(path, device=device)
 
 
 def phase_kernel_vs_plain(device) -> float:
@@ -214,7 +256,7 @@ def phase_kernel_vs_plain(device) -> float:
     from gpu_bidirectional_raytracer_tpu_torch.ops import pallas_trace as ops
     from gpu_bidirectional_raytracer_tpu_torch.render import progressive
 
-    orig, target, scene = _cornell(device)
+    orig, target, scene = _scene_at(SCENE, device)
     w, h, n = SMOKE_W, SMOKE_H, SMOKE_W * SMOKE_H
     cam = Camera.make(orig, target, w, h, device=device)
     li = static_light_indices(scene)
@@ -265,7 +307,7 @@ def phase_main_path() -> dict:
     from gpu_bidirectional_raytracer_tpu_torch.render import film, progressive
 
     # The entry points as a user calls them: the default device is the card.
-    orig, target, scene = _cornell()
+    orig, target, scene = _scene_at()
     cfg = IntegratorConfig()
     w, h = MAIN_W, MAIN_H
     renderer = progressive.Renderer(scene, orig, target, w, h, cfg, seed=0)
@@ -367,6 +409,65 @@ def _grad_names(vpls) -> list[str]:
             + (["vpl_hp", "vpl_rad", "vpl_nl"] if vpls is not None else []))
 
 
+def _diff_vs_plain(tracer, scene, cfg, li, rays, key, vpls, vi, cot) -> dict:
+    """Radiance and gradients (scene, VPL buffer, rays) of ``tracer``
+    under autograd against the plain tracer's, for ``sum(rad * cot)``."""
+    from gpu_bidirectional_raytracer_tpu_torch.core.types import Rays
+    from gpu_bidirectional_raytracer_tpu_torch.integrators import path_tracer
+    from gpu_bidirectional_raytracer_tpu_torch.ops import pallas_grad as pg
+
+    def run(fn):
+        with torch.enable_grad():
+            sc, vb, sl, vl = pg.param_leaves(scene, vpls)
+            o = rays.o.detach().clone().requires_grad_()
+            d = rays.d.detach().clone().requires_grad_()
+            rad = fn(sc, cfg, li, Rays(o=o, d=d), key, 0, vpls=vb,
+                     vlp_index=vi)
+            value = (rad * cot).sum()
+            grads = torch.autograd.grad(value, sl + vl + [o, d])
+        return rad.detach(), value.detach(), grads
+
+    rad_k, value_k, g_k = run(tracer)
+    rad_p, value_p, g_p = run(path_tracer.trace)
+    names = _grad_names(vpls) + ["ray_o", "ray_d"]
+    return {"radiance": protocol(rad_k, rad_p),
+            "loss_rel": abs(float(value_k) - float(value_p))
+            / max(abs(float(value_p)), 1e-30),
+            "grads": {k: grad_check(a, b)
+                      for k, a, b in zip(names, g_k, g_p)}}
+
+
+def _fused_vs_plain(scene, cfg, li, rays, key, tgt, vpls, vi,
+                    loss: str = "l2") -> dict:
+    """`trace_pallas_loss_grad` (``fused_kernel``) against
+    `loss_grad_plain`: the loss and the scene's and VPL buffer's
+    gradients."""
+    from gpu_bidirectional_raytracer_tpu_torch.ops import pallas_grad as pg
+
+    out = []
+    for fn in (pg.trace_pallas_loss_grad, pg.loss_grad_plain):
+        value, gs, gv = fn(scene, cfg, li, rays, key, 0, tgt, vpls=vpls,
+                           vlp_index=vi, loss=loss)
+        out.append((value, [getattr(gs, k) for k in ("p", "rad", "e", "c")]
+                    + list(gv or [])))
+    (value_k, g_k), (value_p, g_p) = out
+    return {"loss_rel": abs(float(value_k) - float(value_p))
+            / max(abs(float(value_p)), 1e-30),
+            "grads": {k: grad_check(a, b)
+                      for k, a, b in zip(_grad_names(vpls), g_k, g_p)}}
+
+
+def _check_diff(label: str, r: dict) -> float:
+    check(r["loss_rel"] <= LOSS_RTOL,
+          f"{label}: loss off by {r['loss_rel']:.2e}")
+    check(r["radiance"]["finite"]
+          and r["radiance"]["bad_frac"] <= MAX_BAD_FRAC,
+          f"{label}: radiance {r['radiance']}")
+    for k, g in r["grads"].items():
+        check(g["ok"], f"{label}: d{k} outside the tolerance ({g})")
+    return max(g["max_abs_err"] for g in r["grads"].values())
+
+
 def phase_grad_vs_plain(device) -> float:
     """The adjoint kernels against autograd of the plain tracer at 64x48;
     the largest |kernel - plain| over every gradient array."""
@@ -375,7 +476,6 @@ def phase_grad_vs_plain(device) -> float:
     from gpu_bidirectional_raytracer_tpu_torch.core.types import (
         Camera,
         IntegratorConfig,
-        Rays,
     )
     from gpu_bidirectional_raytracer_tpu_torch.integrators import light_tracer
     from gpu_bidirectional_raytracer_tpu_torch.integrators.direct import (
@@ -384,7 +484,7 @@ def phase_grad_vs_plain(device) -> float:
     from gpu_bidirectional_raytracer_tpu_torch.ops import pallas_grad as pg
     from gpu_bidirectional_raytracer_tpu_torch.ops import pallas_trace as ops
 
-    orig, target, scene = _cornell(device)
+    orig, target, scene = _scene_at(SCENE, device)
     w, h, n = GRAD_W, GRAD_H, GRAD_W * GRAD_H
     cam = Camera.make(orig, target, w, h, device=device)
     li = static_light_indices(scene)
@@ -406,71 +506,36 @@ def phase_grad_vs_plain(device) -> float:
         vpls = (light_tracer.trace_light_paths(scene, cfg, li, key, 0)
                 if cfg.use_vpl else None)
         vi = 0 if vpls is not None else None
-        scene_tab, vpl_tab, keys, n_rows = ops.launch_tables(
-            scene, cfg, li, key, 0, vpls, vi)
+        scene_tab, vpl_tab, tape = ops.launch_tables(
+            scene, cfg, li, key, 0, vpls, vi, n)
         if loss is None:
-            def run(tracer):
-                with torch.enable_grad():
-                    sc, vb, sl, vl = pg.param_leaves(scene, vpls)
-                    o = rays.o.detach().clone().requires_grad_()
-                    d = rays.d.detach().clone().requires_grad_()
-                    rad = tracer(sc, cfg, li, Rays(o=o, d=d), key, 0,
-                                 vpls=vb, vlp_index=vi)
-                    value = (rad * cot).sum()
-                    grads = torch.autograd.grad(value, sl + vl + [o, d])
-                return rad.detach(), value.detach(), grads
-
-            rad_k, value_k, g_k = run(pg.trace_pallas_diff)
-            rad_p, value_p, g_p = run(pg.trace_diff_plain)
-            names = _grad_names(vpls) + ["ray_o", "ray_d"]
-            launch = lambda: pg.grad_launch(scene_tab, vpl_tab, keys,
-                                            n_rows, cfg, li, rays, cot)
-            radiance = protocol(rad_k, rad_p)
+            r = _diff_vs_plain(pg.trace_pallas_diff, scene, cfg, li, rays,
+                               key, vpls, vi, cot)
+            launch = lambda: pg.grad_launch(scene_tab, vpl_tab, tape, cfg,
+                                            li, rays, cot)
         else:
-            value_k, gs_k, gv_k = pg.trace_pallas_loss_grad(
-                scene, cfg, li, rays, key, 0, tgt, vpls=vpls, vlp_index=vi,
-                loss=loss)
-            value_p, gs_p, gv_p = pg.loss_grad_plain(
-                scene, cfg, li, rays, key, 0, tgt, vpls=vpls, vlp_index=vi,
-                loss=loss)
-            g_k = [getattr(gs_k, k) for k in ("p", "rad", "e", "c")]
-            g_k += list(gv_k or [])
-            g_p = [getattr(gs_p, k) for k in ("p", "rad", "e", "c")]
-            g_p += list(gv_p or [])
-            names = _grad_names(vpls)
+            r = _fused_vs_plain(scene, cfg, li, rays, key, tgt, vpls, vi,
+                                loss)
             tk = torch.log1p(tgt) if loss == "log" else tgt
             rad_fused = torch.empty((n, 3), dtype=torch.float32,
                                     device=device)
-            pg.fused_launch(scene_tab, vpl_tab, keys, n_rows, cfg, li, rays,
-                            tk, loss, radiance_out=rad_fused)
+            pg.fused_launch(scene_tab, vpl_tab, tape, cfg, li, rays, tk,
+                            loss, radiance_out=rad_fused)
             rad_trace = ops.trace_pallas(scene, cfg, li, rays, key, 0,
                                          vpls=vpls, vlp_index=vi)
-            launch = lambda: pg.fused_launch(scene_tab, vpl_tab, keys,
-                                             n_rows, cfg, li, rays, tk, loss)
-            radiance = protocol(rad_fused, rad_trace)
+            launch = lambda: pg.fused_launch(scene_tab, vpl_tab, tape, cfg,
+                                             li, rays, tk, loss)
+            r["radiance"] = protocol(rad_fused, rad_trace)
         first, second = launch(), launch()
         torch.cuda.synchronize()
-        same_bits = all(torch.equal(a, b) for a, b in zip(first, second))
-        grads = {k: grad_check(a, b) for k, a, b in zip(names, g_k, g_p)}
-        loss_rel = abs(float(value_k) - float(value_p)) / max(
-            abs(float(value_p)), 1e-30)
-        results[name] = {"loss": float(value_k), "loss_plain": float(value_p),
-                         "loss_rel": loss_rel, "radiance": radiance,
-                         "two_launches_same_bits": same_bits,
-                         "grads": grads}
+        r["two_launches_same_bits"] = all(
+            torch.equal(a, b) for a, b in zip(first, second))
+        results[name] = r
     phase("grad_vs_plain", width=w, height=h, max_depth=7, results=results)
     for name, r in results.items():
-        check(r["loss_rel"] <= LOSS_RTOL,
-              f"grad_vs_plain {name}: loss off by {r['loss_rel']:.2e}")
-        check(r["radiance"]["finite"]
-              and r["radiance"]["bad_frac"] <= MAX_BAD_FRAC,
-              f"grad_vs_plain {name}: radiance {r['radiance']}")
         check(r["two_launches_same_bits"],
               f"grad_vs_plain {name}: two launches differ")
-        for k, g in r["grads"].items():
-            check(g["ok"], f"grad_vs_plain {name}: d{k} outside the "
-                           f"tolerance ({g})")
-            worst = max(worst, g["max_abs_err"])
+        worst = max(worst, _check_diff(f"grad_vs_plain {name}", r))
     return worst
 
 
@@ -491,7 +556,7 @@ def phase_train_path() -> dict:
     from gpu_bidirectional_raytracer_tpu_torch.ops import pallas_grad as pg
     from gpu_bidirectional_raytracer_tpu_torch.ops import pallas_trace as ops
 
-    orig, target, scene = _cornell()
+    orig, target, scene = _scene_at()
     cfg = IntegratorConfig()
     w, h, n = TRAIN_W, TRAIN_H, TRAIN_W * TRAIN_H
     cam = Camera.make(orig, target, w, h)
@@ -519,8 +584,7 @@ def phase_train_path() -> dict:
     wall = time.perf_counter() - t
     step_launches = dict(ops.LAUNCHES)
     ms_step = start.elapsed_time(stop) / TRAIN_STEPS
-    check(step_launches == {"trace_kernel": 0, "grad_kernel": 0,
-                            "fused_kernel": TRAIN_STEPS},
+    check(step_launches == counts(fused_kernel=TRAIN_STEPS),
           f"training step launches {step_launches} in {TRAIN_STEPS} steps")
     check(bool(torch.isfinite(loss_v)) and all(
         bool(torch.isfinite(getattr(g, k)).all())
@@ -553,17 +617,21 @@ def phase_train_path() -> dict:
     def tables():
         with torch.enable_grad():
             sc, vb, _, _ = pg.param_leaves(scene, vpls)
-            return ops.launch_tables(sc, cfg, li, key, 0, vb, 0)
+            return ops.launch_tables(sc, cfg, li, key, 0, vb, 0, n)
 
-    scene_tab, vpl_tab, keys, n_rows = tables()
+    scene_tab, vpl_tab, tape = tables()
     tgt = black.reshape(n, 3)
     light_ms = cuda_ms(light_fwd, reps=10)
     breakdown = {
         "light_forward": light_ms,
         "light_pullback": cuda_ms(light_fwd_pull, reps=10) - light_ms,
         "tables": cuda_ms(tables, reps=10),
+        # The tape of one fitter launch (threefry: built on the card).
+        "threefry_tape": cuda_ms(lambda: ops.tape_table(
+            cfg, li, rng.make_key(0, "threefry"), 0, False, n,
+            scene.device), reps=5),
         "fused_kernel": cuda_ms(lambda: pg.fused_launch(
-            scene_tab, vpl_tab, keys, n_rows, cfg, li, rays, tgt, "l2"),
+            scene_tab, vpl_tab, tape, cfg, li, rays, tgt, "l2"),
             reps=20),
     }
 
@@ -612,10 +680,12 @@ def phase_train_path() -> dict:
     c = scene.c.clone()
     c[0] = torch.tensor([0.5, 0.5, 0.5], device=c.device)
     wrong = scene.replace(c=c)
-    vs_plain["fit_step_l2_spp4"] = step_vs_plain(wrong, key, target_img, 4,
-                                                 "l2")
+    # The fitter's key: threefry, the tape streamed to the kernels.
+    vs_plain["fit_step_l2_spp4"] = step_vs_plain(
+        wrong, rng.make_key(0, "threefry"), target_img, 4, "l2")
     vs_plain["default_step_l2_unbiased_spp4"] = step_vs_plain(
-        scene, rng.fold_in(key, 0), target_img, 4, "l2_unbiased")
+        scene, rng.fold_in(rng.make_key(0, "threefry"), 0), target_img, 4,
+        "l2_unbiased")
     vs_plain["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
     torch.cuda.empty_cache()
 
@@ -653,13 +723,11 @@ def phase_train_path() -> dict:
             check(g["ok"], f"training {what} vs plain: d{k} outside the "
                            f"tolerance ({g})")
     per_step = 4 * FIT_STEPS
-    check(fit_launches == {"trace_kernel": per_step, "grad_kernel": per_step,
-                           "fused_kernel": 0},
+    check(fit_launches == counts(trace_kernel=per_step, grad_kernel=per_step),
           f"fitter launches {fit_launches} in {FIT_STEPS} steps")
     check(all(math.isfinite(x) for x in losses), f"fitter losses {losses}")
     check(losses[-1] < losses[0], f"fitter loss did not fall: {losses}")
-    check(default_launches == {"trace_kernel": 8, "grad_kernel": 8,
-                               "fused_kernel": 0},
+    check(default_launches == counts(trace_kernel=8, grad_kernel=8),
           f"default fitter step launches {default_launches}")
     check(math.isfinite(default_loss), "default fitter step: loss")
 
@@ -671,8 +739,409 @@ def phase_train_path() -> dict:
             "fused_err": worst(TRAIN_COMPARED[:2]),
             "grad_err": worst(TRAIN_COMPARED[2:]),
             "scene": scene, "cam": cam, "cfg": cfg, "li": li, "key": key,
-            "rays": rays, "vpls": vpls, "tables": (scene_tab, vpl_tab, keys,
-                                                  n_rows)}
+            "rays": rays, "vpls": vpls, "tables": (scene_tab, vpl_tab, tape)}
+
+
+def phase_tape_vs_plain(device) -> dict:
+    """A threefry key (the fitter's) through the three eye-path kernels,
+    which read its tape streamed from the card, against their plain
+    versions at 64x48 on cornell.scn; and the tape made on the card
+    against the same tape made on the CPU, bit for bit."""
+    from gpu_bidirectional_raytracer_tpu_torch import rng
+    from gpu_bidirectional_raytracer_tpu_torch.core.types import (
+        Camera,
+        IntegratorConfig,
+    )
+    from gpu_bidirectional_raytracer_tpu_torch.integrators import (
+        light_tracer,
+        path_tracer,
+    )
+    from gpu_bidirectional_raytracer_tpu_torch.integrators.direct import (
+        static_light_indices,
+    )
+    from gpu_bidirectional_raytracer_tpu_torch.ops import pallas_grad as pg
+    from gpu_bidirectional_raytracer_tpu_torch.ops import pallas_trace as ops
+    from gpu_bidirectional_raytracer_tpu_torch.render import progressive
+
+    orig, target, scene = _scene_at(SCENE, device)
+    w, h, n = GRAD_W, GRAD_H, GRAD_W * GRAD_H
+    cam = Camera.make(orig, target, w, h, device=device)
+    li = static_light_indices(scene)
+    cfg = IntegratorConfig()
+    key = rng.make_key(0, "threefry")
+    tapes = {}
+    for name, args in {"camera": (0, True, n, None, None),
+                       "window": (1, False, n // 2, n // 4, n)}.items():
+        sample, cam_jitter, m, lo, total = args
+        on_card = ops.tape_table(cfg, li, key, sample, cam_jitter, m,
+                                 device, lo, total)
+        on_cpu = ops.tape_table(cfg, li, key, sample, cam_jitter, m, "cpu",
+                                lo, total)
+        tapes[name] = {"rows": on_card.stream.shape[0],
+                       "same_bits": bool(torch.equal(on_card.stream.cpu(),
+                                                     on_cpu.stream))}
+    vpls = light_tracer.trace_light_paths(scene, cfg, li, key, 0)
+    rays = progressive.frame_rays(cam, cfg, w, h, key, 0)
+    results = {
+        "camera": protocol(
+            ops.trace_pallas_camera(scene, cfg, li, cam, w, h, key, 0,
+                                    vpls=vpls, vlp_index=0),
+            ops.trace_camera_plain(scene, cfg, li, cam, w, h, key, 0,
+                                   vpls=vpls, vlp_index=0)),
+        "ray": protocol(
+            ops.trace_pallas(scene, cfg, li, rays, key, 0, vpls=vpls,
+                             vlp_index=0),
+            path_tracer.trace(scene, cfg, li, rays, key, 0, vpls=vpls,
+                              vlp_index=0))}
+    gen = torch.Generator(device=device)
+    gen.manual_seed(2)
+    cot = torch.rand((n, 3), generator=gen, device=device) * 2.0 - 1.0
+    tgt = torch.rand((n, 3), generator=gen, device=device) * 0.5
+    grad = _diff_vs_plain(pg.trace_pallas_diff, scene, cfg, li, rays, key,
+                          vpls, 0, cot)
+    fused = _fused_vs_plain(scene, cfg, li, rays, key, tgt, vpls, 0)
+    phase("tape_vs_plain", width=w, height=h, key="threefry seed 0",
+          tapes=tapes, results=results, grad_kernel=grad,
+          fused_kernel=fused)
+    for name, t in tapes.items():
+        check(t["same_bits"], f"tape_vs_plain: {name} tape differs between "
+                              f"the card and the CPU")
+    for name, r in results.items():
+        check(r["finite"] and r["bad_frac"] <= MAX_BAD_FRAC,
+              f"tape_vs_plain {name}: {r}")
+    grad_err = _check_diff("tape_vs_plain grad_kernel", grad)
+    check(fused["loss_rel"] <= LOSS_RTOL,
+          f"tape_vs_plain fused_kernel: loss off by {fused['loss_rel']:.2e}")
+    for k, g in fused["grads"].items():
+        check(g["ok"], f"tape_vs_plain fused_kernel: d{k} ({g})")
+    return {"trace_err": max(r["max_abs_err"] for r in results.values()),
+            "grad_err": grad_err,
+            "fused_err": max(g["max_abs_err"]
+                             for g in fused["grads"].values())}
+
+
+def phase_bounce_vs_plain(device) -> dict:
+    """The bounce and fact kernels against their plain versions at 64x48,
+    depth 7: complex.scn (mix32 and threefry keys) and cornell.scn with
+    ``direct_only``. Per depth, one launch against `bounce_plain` on the
+    same state; the whole trace against the full-scan plain tracer; two
+    traces with the same bits; the facts against the plain collector; and
+    on complex.scn the re-walk's gradients from the kernel's facts against
+    autograd of the plain tracer."""
+    from gpu_bidirectional_raytracer_tpu_torch import rng
+    from gpu_bidirectional_raytracer_tpu_torch.core.types import (
+        Camera,
+        IntegratorConfig,
+    )
+    from gpu_bidirectional_raytracer_tpu_torch.integrators import (
+        light_tracer,
+        path_tracer,
+    )
+    from gpu_bidirectional_raytracer_tpu_torch.integrators.direct import (
+        static_light_indices,
+    )
+    from gpu_bidirectional_raytracer_tpu_torch.ops import pallas_bounce as pb
+    from gpu_bidirectional_raytracer_tpu_torch.ops import (
+        pallas_bounce_grad as pbg,
+    )
+    from gpu_bidirectional_raytracer_tpu_torch.render import progressive
+
+    w, h, n = SMOKE_W, SMOKE_H, SMOKE_W * SMOKE_H
+    cases = {"complex": (COMPLEX, None, False),
+             "complex_threefry": (COMPLEX, "threefry", False),
+             "cornell_direct_only": (SCENE, None, True)}
+    results, errs = {}, {"bounce": 0.0, "aux": 0.0}
+    for name, (path, impl, direct_only) in cases.items():
+        orig, target, scene = _scene_at(path, device)
+        cam = Camera.make(orig, target, w, h, device=device)
+        li = static_light_indices(scene)
+        cfg = IntegratorConfig()
+        key = rng.make_key(0, impl)
+        vpls = light_tracer.trace_light_paths(scene, cfg, li, key, 0)
+        rays = progressive.frame_rays(cam, cfg, w, h, key, 0)
+        kw = dict(vpls=vpls, vlp_index=0, direct_only=direct_only)
+        call = pb.prepare_bounce(scene, cfg, li, key, 0, vpls, 0, n,
+                                 direct_only)
+        planes = pb.state_planes(rays)
+        per_depth = []
+        for depth in range(cfg.max_depth):
+            want = pb.bounce_plain(scene, cfg, li, planes, key, 0, depth,
+                                   **kw)
+            got = planes.clone()
+            call.launch(got, depth)
+            per_depth.append(float((got == want).all(dim=0).float().mean()))
+            planes = want
+        got = pb.trace_pallas_bounce(scene, cfg, li, rays, key, 0, **kw)
+        again = pb.trace_pallas_bounce(scene, cfg, li, rays, key, 0, **kw)
+        ref = path_tracer.trace(scene, cfg, li, rays, key, 0, **kw)
+        (hit_k, ol_k, ov_k), rad_k = pbg.trace_bounce_aux(
+            scene, cfg, li, rays, key, 0, **kw)
+        rad_p, (hit_p, ol_p, ov_p) = path_tracer.trace(
+            scene, cfg, li, rays, key, 0, collect_aux=True, **kw)
+        torch.cuda.synchronize()
+
+        def mismatch(a, b):
+            used = ~a | ~b               # reached, so consumed, in either
+            return {"consumed": int(used.sum()),
+                    "mismatch_frac": float((a != b)[used].float().mean())
+                    if bool(used.any()) else 0.0}
+
+        r = {"scene_spheres": scene.num_spheres, "key": impl or "mix32",
+             "direct_only": direct_only, "depth_exact_frac": per_depth,
+             "vs_plain": protocol(got, ref),
+             "two_traces_same_bits": bool(torch.equal(got, again)),
+             "aux_radiance_vs_plain": protocol(rad_k, rad_p),
+             "facts": {"hit_mismatch_frac": float(
+                 (hit_k != hit_p).float().mean()),
+                 "occ_light": mismatch(ol_k, ol_p),
+                 "occ_vpl": mismatch(ov_k, ov_p)}}
+        if name == "complex":
+            gen = torch.Generator(device=device)
+            gen.manual_seed(3)
+            cot = torch.rand((n, 3), generator=gen, device=device) * 2 - 1
+            r["rewalk_grads"] = _diff_vs_plain(
+                lambda *a, **k: pbg.trace_bounce_diff(*a, facts="pallas",
+                                                      **k),
+                scene, cfg, li, rays, key, vpls, 0, cot)
+        results[name] = r
+    phase("bounce_vs_plain", width=w, height=h, max_depth=7, results=results)
+    for name, r in results.items():
+        for what in ("vs_plain", "aux_radiance_vs_plain"):
+            check(r[what]["finite"] and r[what]["bad_frac"] <= MAX_BAD_FRAC,
+                  f"bounce_vs_plain {name} {what}: {r[what]}")
+        check(min(r["depth_exact_frac"]) >= 1.0 - MAX_BAD_FRAC,
+              f"bounce_vs_plain {name}: depths {r['depth_exact_frac']}")
+        check(r["two_traces_same_bits"],
+              f"bounce_vs_plain {name}: two traces differ")
+        f = r["facts"]
+        check(max(f["hit_mismatch_frac"], f["occ_light"]["mismatch_frac"],
+                  f["occ_vpl"]["mismatch_frac"]) <= MAX_BAD_FRAC,
+              f"bounce_vs_plain {name}: facts {f}")
+        errs["bounce"] = max(errs["bounce"], r["vs_plain"]["max_abs_err"])
+        errs["aux"] = max(errs["aux"],
+                          r["aux_radiance_vs_plain"]["max_abs_err"])
+        if "rewalk_grads" in r:
+            errs["aux"] = max(errs["aux"], _check_diff(
+                f"bounce_vs_plain {name} re-walk", r["rewalk_grads"]))
+    return errs
+
+
+def phase_complex_path() -> dict:
+    """`Renderer` on complex.scn at 512x384 with the default config and
+    backend, as a user calls it: the bounce kernel, 7 launches a pass."""
+    from gpu_bidirectional_raytracer_tpu_torch.core.types import (
+        IntegratorConfig,
+    )
+    from gpu_bidirectional_raytracer_tpu_torch.integrators import light_tracer
+    from gpu_bidirectional_raytracer_tpu_torch.ops import pallas_bounce as pb
+    from gpu_bidirectional_raytracer_tpu_torch.ops import pallas_trace as ops
+    from gpu_bidirectional_raytracer_tpu_torch.render import progressive
+
+    orig, target, scene = _scene_at(COMPLEX)
+    cfg = IntegratorConfig()
+    w, h, passes = COMPLEX_W, COMPLEX_H, COMPLEX_PASSES
+
+    def renderer(**kw):
+        return progressive.Renderer(scene, orig, target, w, h, cfg, seed=0,
+                                    **kw)
+
+    r = renderer()
+    check(r.backend == "pallas", f"complex.scn resolved to {r.backend}")
+    torch.cuda.synchronize()
+    ops.reset_launches()
+    t = time.perf_counter()
+    r.render(passes)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t
+    launches = dict(ops.LAUNCHES)
+    check(launches == counts(bounce_kernel=cfg.max_depth * passes),
+          f"complex path launches {launches} in {passes} passes")
+    img = r.state.colors
+
+    tiled = renderer(tile_rows=COMPLEX_TILE)
+    tiled.render(passes)
+    tiled_same = bool(torch.equal(tiled.state.colors, img))
+    one = renderer()
+    one.step()
+    plain = renderer(backend="xla", tile_rows=COMPLEX_TILE)
+    plain.step()
+    torch.cuda.synchronize()
+    vs_plain = protocol(one.state.colors, plain.state.colors)
+    del tiled, plain, one
+
+    nonzero = float((img.amax(dim=-1) > 0).float().mean())
+    mean = float(img.mean())
+    ms_pass = cuda_ms(r.step, reps=10, warmup=2)
+    st = r.state
+    li = r.light_idx
+    vpls, vi = progressive.vpl_update(scene, st, cfg, li)
+    rays = progressive.frame_rays(r.camera, cfg, w, h, st.key, st.sample)
+    call = pb.prepare_bounce(scene, cfg, li, st.key, st.sample, vpls, vi,
+                             w * h)
+    planes = pb.state_planes(rays)
+
+    def bounce_pass():
+        p = planes.clone()
+        for depth in range(cfg.max_depth):
+            call.launch(p, depth)
+
+    breakdown = {
+        "light_pass": cuda_ms(lambda: light_tracer.trace_light_paths(
+            scene, cfg, li, st.key, st.sample), reps=5),
+        "frame_rays": cuda_ms(lambda: progressive.frame_rays(
+            r.camera, cfg, w, h, st.key, st.sample), reps=10),
+        "bounce_kernels_7": cuda_ms(bounce_pass, reps=10),
+    }
+    phase("complex_path", width=w, height=h, spheres=scene.num_spheres,
+          passes=passes, launches=launches, wall_s=round(wall, 4),
+          mean=mean, nonzero_frac=nonzero, tiled_96_same_bits=tiled_same,
+          vs_plain_one_pass=vs_plain, ms_per_pass=ms_pass,
+          rays_per_s=w * h / (ms_pass / 1e3), breakdown_ms=breakdown)
+    check(vs_plain["finite"] and bool(torch.isfinite(img).all()),
+          "complex path: non-finite pixels")
+    check(mean > 0.0, "complex path: black image")
+    # complex.scn leaves much of the frame to the background: 40% of a
+    # 64x48 frame was lit after 4 plain passes on the CPU.
+    check(nonzero >= 0.25, f"complex path: only {nonzero:.1%} pixels lit")
+    check(tiled_same, "complex path: 96-row bands differ from one band")
+    check(vs_plain["bad_frac"] <= MAX_BAD_FRAC,
+          f"complex path vs plain: {vs_plain['bad_frac']:.3%} bad pixels")
+    return {"launches": launches, "renderer": r,
+            "max_abs_err": vs_plain["max_abs_err"], "ms_per_pass": ms_pass}
+
+
+def phase_complex_train() -> dict:
+    """`render_loss_grad(backend="pallas")` on complex.scn at 512x384,
+    l2 against a black target, spp 1: the fact kernel (7 launches a
+    step) and the re-walk under autograd. Against plain: the whole step
+    against `backend="xla"` (plain full-scan autograd) at 128x96, and at
+    512x384 the re-walk from the kernel's facts against the re-walk from
+    the plain collector's."""
+    from gpu_bidirectional_raytracer_tpu_torch import rng
+    from gpu_bidirectional_raytracer_tpu_torch.core.types import (
+        Camera,
+        IntegratorConfig,
+    )
+    from gpu_bidirectional_raytracer_tpu_torch.diff import gradients as G
+    from gpu_bidirectional_raytracer_tpu_torch.integrators import (
+        light_tracer,
+        path_tracer,
+    )
+    from gpu_bidirectional_raytracer_tpu_torch.integrators.direct import (
+        static_light_indices,
+    )
+    from gpu_bidirectional_raytracer_tpu_torch.ops import (
+        pallas_bounce_grad as pbg,
+    )
+    from gpu_bidirectional_raytracer_tpu_torch.ops import pallas_grad as pg
+    from gpu_bidirectional_raytracer_tpu_torch.ops import pallas_trace as ops
+    from gpu_bidirectional_raytracer_tpu_torch.render import progressive
+
+    orig, target, scene = _scene_at(COMPLEX)
+    cfg = IntegratorConfig()
+    w, h, n = COMPLEX_W, COMPLEX_H, COMPLEX_W * COMPLEX_H
+    cam = Camera.make(orig, target, w, h)
+    li = static_light_indices(scene)
+    key = rng.make_key(0)
+    black = torch.zeros((h, w, 3), dtype=torch.float32, device=scene.device)
+
+    def step(i):
+        return G.render_loss_grad(scene, cam, rng.fold_in(key, i), black,
+                                  cfg, w, h, li, spp=1, loss="l2",
+                                  backend="pallas")
+
+    step(0)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for i in range(COMPLEX_STEPS):
+        loss_v, g = step(1 + i)
+    stop.record()
+    torch.cuda.synchronize()
+    launches = dict(ops.LAUNCHES)
+    ms_step = start.elapsed_time(stop) / COMPLEX_STEPS
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    check(launches == counts(aux_kernel=cfg.max_depth * COMPLEX_STEPS),
+          f"complex training launches {launches} in {COMPLEX_STEPS} steps")
+    check(bool(torch.isfinite(loss_v)) and all(
+        bool(torch.isfinite(getattr(g, k)).all())
+        for k in ("p", "rad", "e", "c")), "complex training: non-finite")
+
+    params = ("p", "rad", "e", "c")
+    gw, gh = COMPLEX_GRAD_W, COMPLEX_GRAD_H
+    gcam = Camera.make(orig, target, gw, gh)
+    gblack = torch.zeros((gh, gw, 3), dtype=torch.float32,
+                         device=scene.device)
+    lk, gk = G.render_loss_grad(scene, gcam, key, gblack, cfg, gw, gh, li,
+                                1, "l2", "pallas")
+    lp, gp = G.render_loss_grad(scene, gcam, key, gblack, cfg, gw, gh, li,
+                                1, "l2", "xla")
+    torch.cuda.synchronize()
+    vs_plain = {f"step_{gw}x{gh}": {
+        "loss_rel": abs(float(lk) - float(lp)) / abs(float(lp)),
+        "grads": {k: grad_check(getattr(gk, k), getattr(gp, k))
+                  for k in params}}}
+    del gk, gp
+
+    rays = progressive.frame_rays(cam, cfg, w, h, key, 0)
+    vpls = light_tracer.trace_light_paths(scene, cfg, li, key, 0)
+
+    def rewalk(facts):
+        with torch.enable_grad():
+            sc, vb, sl, vl = pg.param_leaves(scene, vpls)
+            rad = pbg.trace_bounce_diff(sc, cfg, li, rays, key, 0, vpls=vb,
+                                        vlp_index=0, facts=facts)
+            value = pg.l2_loss(rad, 0.0 * rad.detach())
+            return value.detach(), torch.autograd.grad(value, sl + vl)
+
+    vk, rk = rewalk("pallas")
+    vp, rp = rewalk("xla")
+    torch.cuda.synchronize()
+    vs_plain[f"rewalk_{w}x{h}"] = {
+        "loss_rel": abs(float(vk) - float(vp)) / abs(float(vp)),
+        "grads": {k: grad_check(a, b)
+                  for k, a, b in zip(_grad_names(vpls), rk, rp)}}
+    vs_plain["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    del rk, rp
+    torch.cuda.empty_cache()
+
+    def rewalk_fwd_bwd():
+        aux, _ = pbg.trace_bounce_aux(scene, cfg, li, rays, key, 0,
+                                      vpls=vpls, vlp_index=0)
+        torch.cuda.synchronize()
+        with torch.enable_grad():
+            sc, vb, sl, vl = pg.param_leaves(scene, vpls)
+            rad = path_tracer.trace(sc, cfg, li, rays, key, 0, vpls=vb,
+                                    vlp_index=0, aux=aux)
+            torch.autograd.grad(rad.square().mean(), sl + vl)
+
+    breakdown = {
+        "light_forward": cuda_ms(lambda: light_tracer.trace_light_paths(
+            scene, cfg, li, key, 0), reps=5),
+        "facts_aux_kernels_7": cuda_ms(lambda: pbg.trace_bounce_aux(
+            scene, cfg, li, rays, key, 0, vpls=vpls, vlp_index=0), reps=5),
+        "facts_then_rewalk_fwd_bwd": cuda_ms(rewalk_fwd_bwd, reps=3),
+    }
+    phase("complex_train", width=w, height=h, spheres=scene.num_spheres,
+          steps=COMPLEX_STEPS, launches=launches, ms_per_step=ms_step,
+          rays_per_s=n / (ms_step / 1e3), loss=float(loss_v),
+          peak_gib=peak_gib, breakdown_ms=breakdown, vs_plain=vs_plain)
+    worst = 0.0
+    for what, r in vs_plain.items():
+        if what == "peak_gib":
+            continue
+        check(r["loss_rel"] <= LOSS_RTOL,
+              f"complex training {what}: loss off by {r['loss_rel']:.2e}")
+        for k, gr in r["grads"].items():
+            check(gr["ok"], f"complex training {what}: d{k} outside the "
+                            f"tolerance ({gr})")
+            worst = max(worst, gr["max_abs_err"])
+    return {"launches": launches, "max_abs_err": worst,
+            "scene": scene, "cam": cam, "cfg": cfg, "li": li, "key": key,
+            "rays": rays, "vpls": vpls}
 
 
 
@@ -694,7 +1163,8 @@ def _bound(ops_total: int, bytes_total: int) -> dict:
 
 
 def phase_kernels(main: dict, train: dict, max_abs_err: float,
-                  grad_err: float, device) -> None:
+                  grad_err: float, device, tape_res: dict, bounce: dict,
+                  cpath: dict, ctrain: dict) -> None:
     """Per-kernel line: times at the main paths' shapes and the bounds."""
     from gpu_bidirectional_raytracer_tpu_torch import camera as cam_mod
     from gpu_bidirectional_raytracer_tpu_torch import rng
@@ -737,7 +1207,8 @@ def phase_kernels(main: dict, train: dict, max_abs_err: float,
         "source": "gpu_bidirectional_raytracer_tpu_torch/csrc/trace_kernel.cu",
         "replaces": "gpu_bidirectional_raytracer_tpu/ops/pallas_trace.py:443",
         "launches": main["launches"]["trace_kernel"],
-        "max_abs_err": max(max_abs_err, main["max_abs_err"]),
+        "max_abs_err": max(max_abs_err, main["max_abs_err"],
+                           tape_res["trace_err"]),
         "ms": ms,
         "plain_ms": plain_ms,
         **_bound(ops_total, bytes_total),
@@ -751,17 +1222,17 @@ def phase_kernels(main: dict, train: dict, max_abs_err: float,
     scene, cfg, li, key, rays_t = (t["scene"], t["cfg"], t["li"], t["key"],
                                    t["rays"])
     vpls_t = t["vpls"]
-    scene_tab, vpl_tab, keys, n_rows = t["tables"]
+    scene_tab, vpl_tab, tape = t["tables"]
     n = rays_t.o.shape[0]
     gen = torch.Generator(device=device)
     gen.manual_seed(1)
     cot = torch.rand((n, 3), generator=gen, device=device) * 2.0 - 1.0
     black = torch.zeros((n, 3), dtype=torch.float32, device=device)
-    grad_ms = cuda_ms(lambda: pg.grad_launch(scene_tab, vpl_tab, keys,
-                                             n_rows, cfg, li, rays_t, cot),
+    grad_ms = cuda_ms(lambda: pg.grad_launch(scene_tab, vpl_tab, tape, cfg,
+                                             li, rays_t, cot),
                       reps=20)
-    fused_ms = cuda_ms(lambda: pg.fused_launch(scene_tab, vpl_tab, keys,
-                                               n_rows, cfg, li, rays_t,
+    fused_ms = cuda_ms(lambda: pg.fused_launch(scene_tab, vpl_tab, tape,
+                                               cfg, li, rays_t,
                                                black, "l2"), reps=20)
 
     def grad_plain():
@@ -794,7 +1265,7 @@ def phase_kernels(main: dict, train: dict, max_abs_err: float,
         "source": grad_src,
         "replaces": "gpu_bidirectional_raytracer_tpu/ops/pallas_grad.py:158",
         "launches": t["fit_launches"]["grad_kernel"],
-        "max_abs_err": max(grad_err, t["grad_err"]),
+        "max_abs_err": max(grad_err, t["grad_err"], tape_res["grad_err"]),
         "ms": grad_ms,
         "plain_ms": grad_plain_ms,
         **_bound(adj_ops, grad_bytes),
@@ -806,14 +1277,113 @@ def phase_kernels(main: dict, train: dict, max_abs_err: float,
         "source": grad_src,
         "replaces": "gpu_bidirectional_raytracer_tpu/ops/pallas_grad.py:1215",
         "launches": t["step_launches"]["fused_kernel"],
-        "max_abs_err": max(grad_err, t["fused_err"]),
+        "max_abs_err": max(grad_err, t["fused_err"], tape_res["fused_err"]),
         "ms": fused_ms,
         "plain_ms": fused_plain_ms,
         **_bound(adj_ops, fused_bytes),
         "library_ms": None,
         "work": {**work, "bytes": fused_bytes},
     }]
+    rows += _bounce_rows(bounce, cpath, ctrain, device)
     print(json.dumps({"kernels": rows}), flush=True)
+
+
+def _bounce_rows(bounce: dict, cpath: dict, ctrain: dict, device) -> list:
+    """The rows of the bounce and fact kernels at complex.scn's 512x384,
+    per launch (one depth). Their work over a pass is what the eye-path
+    kernel would do for the same rays (`path_tracer.trace` with_stats,
+    counted in bands of 96 rows to bound its memory), spread over the 7
+    launches; their bytes are the state planes read and written once per
+    launch, the tables, and for the fact kernel its facts."""
+    from gpu_bidirectional_raytracer_tpu_torch.core.types import Rays
+    from gpu_bidirectional_raytracer_tpu_torch.integrators import path_tracer
+    from gpu_bidirectional_raytracer_tpu_torch.ops import pallas_bounce as pb
+    from gpu_bidirectional_raytracer_tpu_torch.ops import (
+        pallas_bounce_grad as pbg,
+    )
+    from gpu_bidirectional_raytracer_tpu_torch.render import progressive
+
+    r = cpath["renderer"]
+    scene, cfg, li = r.scene, r.cfg, r.light_idx
+    w, h, n = r.width, r.height, r.width * r.height
+    depths = cfg.max_depth
+    st = r.state
+    vpls, vi = progressive.vpl_update(scene, st, cfg, li)
+    rays = progressive.frame_rays(r.camera, cfg, w, h, st.key, st.sample)
+    planes = pb.state_planes(rays)
+    kw = dict(vpls=vpls, vlp_index=vi)
+
+    def bounce_pass(call):
+        p = planes.clone()
+        for depth in range(depths):
+            call.launch(p, depth)
+
+    block_ms = {}
+    for block in BOUNCE_BLOCKS:
+        call = pb.prepare_bounce(scene, cfg, li, st.key, st.sample, vpls, vi,
+                                 n, block=block)
+        block_ms[block] = cuda_ms(lambda: bounce_pass(call), reps=10) / depths
+    ms = block_ms[pb.BLOCK]
+
+    def plain_pass(collect):
+        p = planes
+        for depth in range(depths):
+            p = pb.bounce_plain(scene, cfg, li, p, st.key, st.sample, depth,
+                                collect=collect, **kw)
+            if collect:
+                p = p[0]
+
+    plain_ms = cuda_ms(lambda: plain_pass(False), reps=1, warmup=1) / depths
+    stats = {}
+    band = COMPLEX_TILE * w
+    for lo in range(0, n, band):
+        _, s_ = path_tracer.trace(
+            scene, cfg, li, Rays(o=rays.o[lo:lo + band],
+                                 d=rays.d[lo:lo + band]),
+            st.key, st.sample, lane_offset=lo, lane_total=n,
+            with_stats=True, **kw)
+        stats = {k: stats.get(k, 0) + v for k, v in s_.items()}
+    s = scene.num_spheres
+    n_vpl = cfg.vpl_depth * cfg.max_vlp if cfg.use_vpl else 0
+    ops_launch = _forward_ops(stats, s) // depths
+    k_rows = depths * (2 * max(len(li), 1) + 3)
+    tables = 4 * 16 * (s + n_vpl) + 16 * k_rows + 4 * len(li)
+    bounce_bytes = tables + 2 * 4 * pb.N_PLANES * n
+    aux_bytes = bounce_bytes + (4 + len(li) + n_vpl) * n
+    src = "gpu_bidirectional_raytracer_tpu_torch/csrc/bounce_kernel.cu"
+    aux_ms = cuda_ms(lambda: pbg.trace_bounce_aux(
+        scene, cfg, li, rays, st.key, st.sample, **kw), reps=10) / depths
+    aux_plain_ms = cuda_ms(lambda: plain_pass(True), reps=1,
+                           warmup=1) / depths
+    work = {**stats, "fp32_ops_per_launch": ops_launch,
+            "per_launch": "one depth; the pass's work over its 7 launches"}
+    return [{
+        "name": "bounce_kernel",
+        "route": "cuda",
+        "source": src,
+        "replaces": "gpu_bidirectional_raytracer_tpu/ops/pallas_bounce.py:48",
+        "launches": cpath["launches"]["bounce_kernel"],
+        "max_abs_err": max(bounce["bounce"], cpath["max_abs_err"]),
+        "ms": ms,
+        "plain_ms": plain_ms,
+        **_bound(ops_launch, bounce_bytes),
+        "library_ms": None,
+        "block_ms": block_ms,
+        "work": {**work, "bytes": bounce_bytes},
+    }, {
+        "name": "aux_kernel",
+        "route": "cuda",
+        "source": src,
+        "replaces":
+            "gpu_bidirectional_raytracer_tpu/ops/pallas_bounce_grad.py:61",
+        "launches": ctrain["launches"]["aux_kernel"],
+        "max_abs_err": max(bounce["aux"], ctrain["max_abs_err"]),
+        "ms": aux_ms,
+        "plain_ms": aux_plain_ms,
+        **_bound(ops_launch, aux_bytes),
+        "library_ms": None,
+        "work": {**work, "bytes": aux_bytes},
+    }]
 
 
 def main() -> int:
@@ -837,9 +1407,14 @@ def main() -> int:
         phase_build()
         max_err = phase_kernel_vs_plain(device)
         grad_err = phase_grad_vs_plain(device)
+        tape_res = phase_tape_vs_plain(device)
+        bounce_res = phase_bounce_vs_plain(device)
         main_res = phase_main_path()
         train_res = phase_train_path()
-        phase_kernels(main_res, train_res, max_err, grad_err, device)
+        cpath_res = phase_complex_path()
+        ctrain_res = phase_complex_train()
+        phase_kernels(main_res, train_res, max_err, grad_err, device,
+                      tape_res, bounce_res, cpath_res, ctrain_res)
     except SmokeFailure as err:
         print(f"chip_smoke: FAILED: {err}", file=sys.stderr, flush=True)
         return 1

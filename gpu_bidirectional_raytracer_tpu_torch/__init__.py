@@ -3,10 +3,11 @@
 The JAX package ``gpu_bidirectional_raytracer_tpu`` is the reference; this
 package mirrors its layout module for module and never imports it or JAX.
 Plain tensor code is PyTorch; the eye-path megakernel
-(``csrc/trace_kernel.cu``) and its adjoint (``csrc/grad_kernel.cu``: the
+(``csrc/trace_kernel.cu``), its adjoint (``csrc/grad_kernel.cu``: the
 backward of the differentiable tracer and the fused loss-and-gradient
-step) are CUDA C++ for Hopper, built with nvcc at first use and bound with
-ctypes (``ops/_build.py``). Entry points take a ``device`` that
+step) and the per-depth bounce and fact kernels of scenes above 64
+spheres (``csrc/bounce_kernel.cu``) are CUDA C++ for Hopper, built with
+nvcc at first use and bound with ctypes (``ops/_build.py``). Entry points take a ``device`` that
 defaults to ``"cuda"`` and raise when no card is present; pass
 ``device="cpu"`` to run the plain versions on the CPU.
 """

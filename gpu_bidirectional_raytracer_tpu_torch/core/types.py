@@ -165,7 +165,8 @@ class RenderState:
 
     ``colors``/``counter`` stay on the device. ``vlp_index`` and ``sample``
     are host integers (the schedule branches on them), and ``key`` is the
-    pair of 32-bit words of the mix32 render key (`rng.make_key`).
+    pair of 32-bit words of the render key (`rng.make_key`: mix32, or a
+    `rng.ThreefryKey`).
     """
 
     colors: Tensor      # [H, W, 3] running mean radiance

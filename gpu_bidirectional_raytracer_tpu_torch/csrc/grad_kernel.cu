@@ -68,6 +68,7 @@ struct Params {
   const float* scene;     // [S, 16]
   const float* vpl;       // [V, 16]
   const uint32_t* keys;   // [K, 4] site keys; then light ids
+  const float* tape;      // [K, n] streamed tape, or null (mix32 keys)
   const float* rays_o;    // [n, 3]
   const float* rays_d;    // [n, 3]
   const float* cot;       // [n, 3] radiance cotangent (grad mode)
@@ -233,8 +234,8 @@ __device__ __forceinline__ float scatter_adj(const Tables& T, int row0,
   const float refl = x.hs[10];
   const int L = T.n_light_slots;
   if (refl == 0.0f) {  // diffuse: cosine lobe about nl
-    const float u1 = tape(T.keys, row0 + 2 * L, gl, T.lane_total);
-    const float u2 = tape(T.keys, row0 + 2 * L + 1, gl, T.lane_total);
+    const float u1 = tape(T, row0 + 2 * L, gl);
+    const float u2 = tape(T, row0 + 2 * L + 1, gl);
     const float* nl = x.nl;
     const bool big_x = fabsf(nl[0]) > 0.1f;
     const float a[3] = {big_x ? 0.0f : 1.0f, big_x ? 1.0f : 0.0f, 0.0f};
@@ -298,7 +299,7 @@ __device__ __forceinline__ float scatter_adj(const Tables& T, int row0,
   const float c2 = c1 * c1;
   const float re = 0.04f + 0.96f * (c1 * (c2 * c2));
   const float pr = 0.25f + 0.5f * re;
-  const float urr = tape(T.keys, row0 + 2 * L + 2, gl, T.lane_total);
+  const float urr = tape(T, row0 + 2 * L + 2, gl);
   const bool reflect = urr < pr;
   const float* c = x.hs + 7;
   const float bmul = btp[0] * x.tp[0] * c[0] + btp[1] * x.tp[1] * c[1] +
@@ -478,9 +479,10 @@ __global__ void __launch_bounds__(kBlock) grad_kernel(Params p) {
   const int idx = blockIdx.x * blockDim.x + threadIdx.x;
   const bool valid = idx < p.n;   // no early return: the warp stays whole
   const uint32_t gl = static_cast<uint32_t>(idx) + p.lane_offset;
-  const Tables T{scene, vpl, keys, lights, p.n_spheres, p.n_vpl,
-                 p.n_lights, p.n_light_slots, p.combine_half, p.lane_total,
-                 p.emission_scale, p.light_gain};
+  const Tables T{scene, vpl, keys, lights, p.tape, p.n_spheres, p.n_vpl,
+                 p.n_lights, p.n_light_slots, p.combine_half, p.lane_offset,
+                 p.lane_total, static_cast<uint32_t>(p.n),
+                 p.emission_scale, p.light_gain, 0};
   const int per_depth = 2 * p.n_light_slots + 3;
 
   // ---- forward sweep: tracer.cuh's eye_step, saving each depth
@@ -730,7 +732,8 @@ int launch(const Params& p, void* stream) {
 }
 
 Params common(const void* scene, int n_spheres, const void* vpl, int n_vpl,
-              const void* keys, int n_rows, int n_lights, const void* rays_o,
+              const void* keys, int n_rows, const void* tape, int n_lights,
+              const void* rays_o,
               const void* rays_d, int n, int max_depth, int n_light_slots,
               int combine_half, unsigned int lane_offset,
               unsigned int lane_total, float emission_scale,
@@ -739,6 +742,7 @@ Params common(const void* scene, int n_spheres, const void* vpl, int n_vpl,
   p.scene = static_cast<const float*>(scene);
   p.vpl = static_cast<const float*>(vpl);
   p.keys = static_cast<const uint32_t*>(keys);
+  p.tape = static_cast<const float*>(tape);
   p.rays_o = static_cast<const float*>(rays_o);
   p.rays_d = static_cast<const float*>(rays_d);
   p.n_spheres = n_spheres;
@@ -760,12 +764,14 @@ Params common(const void* scene, int n_spheres, const void* vpl, int n_vpl,
 
 extern "C" int grad_kernel_launch(
     const void* scene, int n_spheres, const void* vpl, int n_vpl,
-    const void* keys, int n_rows, int n_lights, const void* rays_o,
+    const void* keys, int n_rows, const void* tape, int n_lights,
+    const void* rays_o,
     const void* rays_d, int n, int max_depth, int n_light_slots,
     int combine_half, unsigned int lane_offset, unsigned int lane_total,
     float emission_scale, float light_gain, const void* cot, void* dscene,
     void* dvpl, void* drays_o, void* drays_d, void* stream) {
-  Params p = common(scene, n_spheres, vpl, n_vpl, keys, n_rows, n_lights,
+  Params p = common(scene, n_spheres, vpl, n_vpl, keys, n_rows, tape,
+                    n_lights,
                     rays_o, rays_d, n, max_depth, n_light_slots, combine_half,
                     lane_offset, lane_total, emission_scale, light_gain);
   p.cot = static_cast<const float*>(cot);
@@ -778,13 +784,15 @@ extern "C" int grad_kernel_launch(
 
 extern "C" int fused_kernel_launch(
     const void* scene, int n_spheres, const void* vpl, int n_vpl,
-    const void* keys, int n_rows, int n_lights, const void* rays_o,
+    const void* keys, int n_rows, const void* tape, int n_lights,
+    const void* rays_o,
     const void* rays_d, int n, int max_depth, int n_light_slots,
     int combine_half, unsigned int lane_offset, unsigned int lane_total,
     float emission_scale, float light_gain, const void* target,
     int loss_kind, float inv3n, void* dscene, void* dvpl, void* loss_part,
     void* rad_out, void* stream) {
-  Params p = common(scene, n_spheres, vpl, n_vpl, keys, n_rows, n_lights,
+  Params p = common(scene, n_spheres, vpl, n_vpl, keys, n_rows, tape,
+                    n_lights,
                     rays_o, rays_d, n, max_depth, n_light_slots, combine_half,
                     lane_offset, lane_total, emission_scale, light_gain);
   p.target = static_cast<const float*>(target);

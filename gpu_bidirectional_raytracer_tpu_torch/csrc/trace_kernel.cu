@@ -9,7 +9,9 @@
 // gather with the (direct + vpl) / 2 combine, and diffuse / mirror /
 // Fresnel-glass scatter. The mix32 random tape is regenerated in registers
 // from per-row site keys (k0, k1, block row) with native uint32 arithmetic,
-// bit for bit the tape of rng.site_uniforms.
+// bit for bit the tape of rng.site_uniforms; any other tape (threefry)
+// comes streamed as a [K, n] buffer that the wrapper built with
+// rng.site_uniforms (tracer.cuh's tape()).
 //
 // Design for the GPU rather than the TPU's (rows, 128) planes:
 // - one thread per pixel, guarded by idx < n, so nothing is padded;
@@ -46,6 +48,7 @@ struct Params {
   const float* scene;     // [S, 16]: rad, p(3), e(3), c(3), refl, pad
   const float* vpl;       // [V, 16]: hp(3), rad(3), nl(3), valid, pad
   const uint32_t* keys;   // [K, 4] k0, k1, block row, 0; then light ids
+  const float* tape;      // [K, n] streamed tape, or null (mix32 keys)
   const float* cam;       // [32]: x_hat, y_hat, d_hat, orig, temp, film, jitter
   const float* rays_o;    // [n, 3] (ray mode)
   const float* rays_d;    // [n, 3] (ray mode)
@@ -73,14 +76,17 @@ __global__ void trace_kernel(Params p) {
   const int idx = blockIdx.x * blockDim.x + threadIdx.x;
   if (idx >= p.n) return;
   const uint32_t gl = static_cast<uint32_t>(idx) + p.lane_offset;
-  const uint32_t lt = p.lane_total;
+  const Tables T{scene, vpl, keys, lights, p.tape, p.n_spheres, p.n_vpl,
+                 p.n_lights, p.n_light_slots, p.combine_half, p.lane_offset,
+                 p.lane_total, static_cast<uint32_t>(p.n),
+                 p.emission_scale, p.light_gain, 0};
 
   float ox, oy, oz, dx, dy, dz;
   if (p.cam_mode) {
     // camera.primary_rays: film coords, homogeneous divide, origin shift.
     const float* c = p.cam;
-    float ju = tape(keys, 0, gl, lt);
-    float jv = tape(keys, 1, gl, lt);
+    float ju = tape(T, 0, gl);
+    float jv = tape(T, 1, gl);
     if (c[23] > 0.0f) {  // stratified jitter: (s + u) * (1/k)
       ju = (c[20] + ju) * c[22];
       jv = (c[21] + jv) * c[22];
@@ -113,9 +119,6 @@ __global__ void trace_kernel(Params p) {
     dz = p.rays_d[3 * idx + 2];
   }
 
-  const Tables T{scene, vpl, keys, lights, p.n_spheres, p.n_vpl,
-                 p.n_lights, p.n_light_slots, p.combine_half, lt,
-                 p.emission_scale, p.light_gain};
   Path s{ox, oy, oz, dx, dy, dz, 1.0f, 1.0f, 1.0f, true};
   float rad_r = 0.0f, rad_g = 0.0f, rad_b = 0.0f;
   const int per_depth = 2 * p.n_light_slots + 3;
@@ -137,7 +140,8 @@ __global__ void trace_kernel(Params p) {
 
 extern "C" int trace_kernel_launch(
     const void* scene, int n_spheres, const void* vpl, int n_vpl,
-    const void* keys, int n_rows, int n_lights, const void* cam,
+    const void* keys, int n_rows, const void* tape, int n_lights,
+    const void* cam,
     const void* rays_o, const void* rays_d, int n, int width, int cam_rows, int max_depth,
     int n_light_slots, int combine_half,
     unsigned int lane_offset, unsigned int lane_total, float emission_scale,
@@ -147,6 +151,7 @@ extern "C" int trace_kernel_launch(
   p.scene = static_cast<const float*>(scene);
   p.vpl = static_cast<const float*>(vpl);
   p.keys = static_cast<const uint32_t*>(keys);
+  p.tape = static_cast<const float*>(tape);
   p.cam = static_cast<const float*>(cam);
   p.rays_o = static_cast<const float*>(rays_o);
   p.rays_d = static_cast<const float*>(rays_d);

@@ -1,8 +1,9 @@
-// Device functions shared by the eye-path kernel (trace_kernel.cu) and its
-// adjoint (grad_kernel.cu): the ray-sphere root, the any-hit scan, the
-// mix32 tape, shadow segments, and one depth of the eye path. Both kernels
-// run the same forward code, so on the card the adjoint's forward sweep
-// and the eye-path kernel see the same bits.
+// Device functions shared by the eye-path kernel (trace_kernel.cu), its
+// adjoint (grad_kernel.cu) and the per-depth bounce and fact kernels
+// (bounce_kernel.cu): the ray-sphere root, the any-hit scan, the random
+// tape, shadow segments, and one depth of the eye path. All of them run
+// the same forward code, so on the card the adjoint's forward sweep, the
+// bounce kernel's depths and the eye-path kernel see the same bits.
 //
 // Expressions follow the plain PyTorch version's operation order
 // (integrators/*.py, core/vecmath.py); the sources are built with
@@ -24,14 +25,20 @@ constexpr float kTwoPi = 6.283185307179586f;
 constexpr float kFourPi = 12.566370614359172f;
 
 // What one launch reads: the tables in shared memory and the config.
+// The tape comes from one of two sources: the mix32 site keys (`keys`),
+// regenerated in registers, or a streamed [K, n] buffer (`stream`, row r
+// of the launch's lane i at stream[r * n + i]) that the wrapper built for
+// any other key. Row r means the same draw either way.
 struct Tables {
   const float* scene;     // [S, 16]: rad, p(3), e(3), c(3), refl, pad
   const float* vpl;       // [V, 16]: hp(3), rad(3), nl(3), valid, pad
-  const uint32_t* keys;   // [K, 4] k0, k1, block row, 0
+  const uint32_t* keys;   // [K, 4] k0, k1, block row, 0 (mix32 only)
   const int* lights;      // [n_lights] sphere ids of the emitters
+  const float* stream;    // [K, n] streamed tape, or null for mix32
   int n_spheres, n_vpl, n_lights, n_light_slots, combine_half;
-  uint32_t lane_total;
+  uint32_t lane_offset, lane_total, n;
   float emission_scale, light_gain;
+  int direct_only;        // a diffuse vertex ends the path after its NEE
 };
 
 // The eye path between two depths.
@@ -46,6 +53,7 @@ enum : int {
   kEscaped = 0,   // no hit: the path ends, nothing at this depth
   kEmitter = 1,   // emitter hit: emission on specular chains, then it ends
   kContinue = 2,  // shaded and scattered
+  kDirectEnd = 3,  // direct_only: NEE at a diffuse vertex, then it ends
 };
 
 __device__ __forceinline__ float dot3(float ax, float ay, float az,
@@ -97,13 +105,16 @@ __device__ __forceinline__ bool occluded(const float* scene, int n_spheres,
   return false;
 }
 
-// Tape row `row` at global lane `gl`: mix32((rw * lane_total + gl) ^ k0, k1)
-// mapped to (x >> 9) * 2^-23 (rng.py).
-__device__ __forceinline__ float tape(const uint32_t* keys, int row,
-                                      uint32_t gl, uint32_t lane_total) {
-  const uint32_t k0 = keys[4 * row], k1 = keys[4 * row + 1];
-  const uint32_t rw = keys[4 * row + 2];
-  uint32_t x = (rw * lane_total + gl) ^ k0;
+// Tape row `row` at global lane `gl`. Streamed: the buffer's entry.
+// mix32: mix32((rw * lane_total + gl) ^ k0, k1) mapped to
+// (x >> 9) * 2^-23 (rng.py).
+__device__ __forceinline__ float tape(const Tables& T, int row,
+                                      uint32_t gl) {
+  if (T.stream != nullptr)
+    return T.stream[static_cast<size_t>(row) * T.n + (gl - T.lane_offset)];
+  const uint32_t k0 = T.keys[4 * row], k1 = T.keys[4 * row + 1];
+  const uint32_t rw = T.keys[4 * row + 2];
+  uint32_t x = (rw * T.lane_total + gl) ^ k0;
   x ^= x >> 17;
   x *= 0xed5ad4bbu;
   x += k1;
@@ -137,9 +148,8 @@ __device__ __forceinline__ void segment(float qx, float qy, float qz,
 __device__ __forceinline__ void light_dir(const Tables& T, int row0, int slot,
                                           uint32_t gl, float& ux, float& uy,
                                           float& uz) {
-  const float u1 = tape(T.keys, row0 + slot, gl, T.lane_total);
-  const float u2 = tape(T.keys, row0 + T.n_light_slots + slot, gl,
-                        T.lane_total);
+  const float u1 = tape(T, row0 + slot, gl);
+  const float u2 = tape(T, row0 + T.n_light_slots + slot, gl);
   const float zz = 1.0f - 2.0f * u1;
   const float r = sqrtf(fmaxf(1.0f - zz * zz, 0.0f));
   const float phi = kTwoPi * u2;
@@ -171,7 +181,9 @@ __device__ __forceinline__ int nearest(const Tables& T, const Path& s,
 // and advances `s`; returns how the depth ended and the hit sphere. With
 // `lit` non-null, bit j of lit[j / 32] is set for each light slot j, and
 // bit n_lights + v for each VPL slot v, whose sample reached the vertex
-// (faced it and was not occluded): the detached facts the adjoint reuses.
+// (faced it and was not occluded): the detached facts the adjoint and the
+// fact kernel report. With T.direct_only a diffuse vertex returns
+// kDirectEnd after its NEE, `s` untouched, as an emitter hit does.
 __device__ __forceinline__ int eye_step(const Tables& T, int row0,
                                         uint32_t gl, Path& s, float& rad_r,
                                         float& rad_g, float& rad_b,
@@ -274,13 +286,14 @@ __device__ __forceinline__ int eye_step(const Tables& T, int row0,
     rad_r = rad_r + s.tp_r * cr * ld_r;
     rad_g = rad_g + s.tp_g * cg * ld_g;
     rad_b = rad_b + s.tp_b * cb * ld_b;
+    if (T.direct_only) return kDirectEnd;
   }
 
   // ---- scatter (integrators/bsdf.py::scatter)
   float ndx, ndy, ndz, mul = 1.0f;
   if (is_diff) {
-    const float u1 = tape(T.keys, row0 + 2 * L, gl, T.lane_total);
-    const float u2 = tape(T.keys, row0 + 2 * L + 1, gl, T.lane_total);
+    const float u1 = tape(T, row0 + 2 * L, gl);
+    const float u2 = tape(T, row0 + 2 * L + 1, gl);
     const bool big_x = fabsf(nlx) > 0.1f;
     const float ax = big_x ? 0.0f : 1.0f;
     const float ay = big_x ? 1.0f : 0.0f;
@@ -323,7 +336,7 @@ __device__ __forceinline__ int eye_step(const Tables& T, int row0,
         const float c2 = c1 * c1;
         const float re = r0 + 0.96f * (c1 * (c2 * c2));
         const float pr = 0.25f + 0.5f * re;
-        const float urr = tape(T.keys, row0 + 2 * L + 2, gl, T.lane_total);
+        const float urr = tape(T, row0 + 2 * L + 2, gl);
         if (urr < pr) {
           mul = re / pr;
         } else {

@@ -11,10 +11,13 @@ the hit sphere, and every sqrt and division on maskable data is guarded.
 In the plain torch tracer these follow from the code: booleans carry no
 gradient and `torch.where` routes it to the taken branch only.
 
-Backends: ``"auto"`` takes the CUDA kernels (`ops.pallas_grad`) for a
-scene on the card and the plain torch tracer on the CPU; ``"pallas"`` the
-kernels (whose wrappers run the plain versions on CPU tensors); ``"xla"``
-the plain torch tracer on any device; ``"mxu"`` is not ported.
+Backends: ``"auto"`` takes the CUDA kernels for a scene on the card and
+the plain torch tracer on the CPU; ``"pallas"`` the kernels (whose
+wrappers run the plain versions on CPU tensors); ``"xla"`` the plain torch
+tracer on any device and at any sphere count; ``"mxu"`` is not ported.
+With the kernels, a scene of at most 64 spheres takes the adjoint kernels
+(`ops.pallas_grad`) and a larger one the fact kernel and the re-walk
+(`ops.pallas_bounce_grad.trace_bounce_diff`), as in the JAX package.
 """
 
 from __future__ import annotations
@@ -39,6 +42,9 @@ from gpu_bidirectional_raytracer_tpu_torch.integrators.direct import (
     static_light_indices,
 )
 from gpu_bidirectional_raytracer_tpu_torch.ops import pallas_grad
+from gpu_bidirectional_raytracer_tpu_torch.ops.pallas_bounce_grad import (
+    trace_bounce_diff,
+)
 from gpu_bidirectional_raytracer_tpu_torch.ops.pallas_grad import (  # noqa: F401
     LOSSES as _LOSSES,
     PARAMS as _PARAMS,
@@ -49,15 +55,38 @@ from gpu_bidirectional_raytracer_tpu_torch.ops.pallas_grad import (  # noqa: F40
 _BACKENDS = ("auto", "pallas", "xla")
 
 
-def _resolve_backend(scene: Scene, backend: str) -> str:
+def _resolve_backend(device_type: str, backend: str) -> str:
+    """``"auto"``: the kernels (``"pallas"``) on the card, the plain
+    tracer (``"xla"``) on the CPU."""
     if backend == "mxu":
         raise NotImplementedError("backend 'mxu' (matmul sphere scans) is "
                                   "not ported")
     if backend not in _BACKENDS:
         raise ValueError(f"unknown backend {backend!r}")
     if backend == "auto":
-        return "pallas" if scene.device.type == "cuda" else "xla"
+        return "pallas" if device_type == "cuda" else "xla"
     return backend
+
+
+def radiance_route(device_type: str, num_spheres: int, backend: str) -> str:
+    """The tracer of `render_radiance_lanes`: ``"plain"``
+    (`path_tracer.trace`, any sphere count), ``"adjoint"``
+    (`ops.pallas_grad.trace_pallas_diff`, at most 64 spheres) or
+    ``"bounce"`` (`trace_bounce_diff`, more)."""
+    if _resolve_backend(device_type, backend) != "pallas":
+        return "plain"
+    return "adjoint" if num_spheres <= pallas_grad.SPHERE_LIMIT else "bounce"
+
+
+def fitter_backend(device_type: str, num_spheres: int,
+                   backend: str = "auto") -> str:
+    """`InverseRenderer`'s backend, JAX's rule: ``"auto"`` is the kernels
+    on the card up to 64 spheres and the plain tracer above that and on
+    the CPU."""
+    if backend == "auto":
+        return ("pallas" if device_type == "cuda"
+                and num_spheres <= pallas_grad.SPHERE_LIMIT else "xla")
+    return _resolve_backend(device_type, backend)
 
 
 def render_radiance_lanes(scene: Scene, cam: Camera, key: rng.Key,
@@ -72,9 +101,13 @@ def render_radiance_lanes(scene: Scene, cam: Camera, key: rng.Key,
     the whole frame). Every draw is a window of the global tape, so a
     banded render equals the whole one. With VPLs the light subpaths are
     re-traced inside the graph each sample, and the gather window is the
-    fresh ``[0, max_vlp)`` block."""
-    pallas_grad.check_supported(scene, cfg)
-    use_kernel = _resolve_backend(scene, backend) == "pallas"
+    fresh ``[0, max_vlp)`` block. With the kernels, more than 64 spheres
+    take `trace_bounce_diff`."""
+    pallas_grad.check_supported(cfg)
+    tracer = {"plain": path_tracer.trace,
+              "adjoint": pallas_grad.trace_pallas_diff,
+              "bounce": trace_bounce_diff}[radiance_route(
+                  scene.device.type, scene.num_spheres, backend)]
     dev = scene.device
     if lane_count is None:
         lane_offset, lane_count, lane_total = None, width * height, None
@@ -99,8 +132,6 @@ def render_radiance_lanes(scene: Scene, cam: Camera, key: rng.Key,
             vlp_index = 0
         else:
             vpls, vlp_index = None, None
-        tracer = (pallas_grad.trace_pallas_diff if use_kernel
-                  else path_tracer.trace)
         acc = acc + tracer(scene, cfg, light_idx, rays, key, s, vpls=vpls,
                            vlp_index=vlp_index, lane_offset=lane_offset,
                            lane_total=lane_total)
@@ -129,7 +160,7 @@ def render_loss_grad(scene: Scene, cam: Camera, key: rng.Key,
     0x5EED)``), or the single-render ``'l2'`` and ``'log'``. With the
     kernels, l2/log at one sample per pixel run the fused step: one
     kernel for the loss and the direct gradients."""
-    resolved = _resolve_backend(scene, backend)
+    resolved = _resolve_backend(scene.device.type, backend)
     if (loss in ("l2", "log") and resolved == "pallas" and spp == 1
             and cfg.sil_grad_tau == 0.0
             and scene.num_spheres <= pallas_grad.SPHERE_LIMIT):
@@ -241,17 +272,19 @@ class InverseRenderer:
     stay at or above ``min_radius``, albedo in [0, 1], emission at or
     above 0.
 
-    Keys: the port has only the mix32 tape, so a step draws
-    ``rng.make_key(seed)``, folded with the step number when
-    ``resample``. The JAX fitter calls ``jax.random.key(seed)``, a
-    threefry key, so from the same seed the two fitters draw different
-    tapes; with mix32 keys replayed on the JAX side they take the same
-    steps (tests/test_torch_inverse.py).
+    Keys: a step draws ``rng.make_key(seed, "threefry")``, folded with
+    the step number when ``resample``: the key of JAX's fitter
+    (``jax.random.key(seed)``), so from the same seed the two fitters
+    draw the same tapes and take the same steps. The kernels read a
+    threefry tape streamed from the card (`ops.pallas_trace.Tape`).
+
+    ``backend="auto"`` follows JAX's rule (`fitter_backend`): the kernels
+    on the card up to 64 spheres, the plain tracer above that.
 
     The JAX fitter's carrier-tau annealing (``tau_anneal``,
     ``anneal_steps``, ``anneal_stages``) scales ``sil_grad_tau`` and
-    ``vis_grad_tau`` only; it comes with those carriers (ROADMAP queue 1
-    item 9), which are not ported yet.
+    ``vis_grad_tau`` only; it comes with those gradient carriers, which
+    are not ported yet.
     """
 
     scene: Scene
@@ -271,8 +304,7 @@ class InverseRenderer:
     grad_mask: dict | None = None
     loss: str | None = None  # default: 'l2_unbiased' when resampling,
                              # 'l2' on a fixed tape
-    backend: str = "auto"    # 'auto': the CUDA kernels on the card, the
-                             # plain torch tracer on the CPU
+    backend: str = "auto"    # 'auto': `fitter_backend`
     # Plateau early stopping: after `patience` steps with less than
     # `min_improve` relative improvement on the best loss, `should_stop`.
     patience: int = 0           # 0 = off
@@ -283,7 +315,8 @@ class InverseRenderer:
     def __post_init__(self):
         if self.loss is None:
             self.loss = "l2_unbiased" if self.resample else "l2"
-        self.backend = _resolve_backend(self.scene, self.backend)
+        self.backend = fitter_backend(self.scene.device.type,
+                                      self.scene.num_spheres, self.backend)
         self.light_idx = static_light_indices(self.scene)
         self._opt_state = _Adam(self.lr, self._params())
         self.best_loss = float("inf")
@@ -299,7 +332,7 @@ class InverseRenderer:
         return self.patience > 0 and self._stall >= self.patience
 
     def step(self) -> float:
-        key = rng.make_key(self.seed)
+        key = rng.make_key(self.seed, "threefry")
         if self.resample:
             key = rng.fold_in(key, self._step)
         loss, grads = render_loss_grad(

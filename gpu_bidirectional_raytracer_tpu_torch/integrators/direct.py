@@ -7,6 +7,10 @@ len^2``. The VPL gather reads the window ``vlp_index .. vlp_index +
 max_vlp`` (wrapping modulo ``light_points``) of every VPL depth, with
 shadow rays that pass through emitters, and averages over the window.
 ``sample_lights`` combines the two as ``(direct + vpl) / 2``.
+
+Occlusion can come from outside (``occ_light``/``occ_vpl``): the re-walk
+of the many-sphere gradient reads it off the facts of a prior pass
+instead of scanning, and ``with_occ`` returns it, for the collector.
 """
 
 from __future__ import annotations
@@ -68,14 +72,21 @@ def _count_shadow_work(work: dict, scene: Scene, hp: Tensor, sdir: Tensor,
 
 def sample_direct(scene: Scene, cfg: IntegratorConfig,
                   light_idx: tuple[int, ...], hp: Tensor, nl: Tensor,
-                  light_u: Tensor, work: dict | None = None) -> Tensor:
+                  light_u: Tensor, work: dict | None = None,
+                  occ_override: Tensor | None = None,
+                  with_occ: bool = False):
     """Direct light at ``hp [N,3]`` with shading normal ``nl [N,3]``.
     ``light_u [L, 2, N]`` are the uniforms of each light slot. ``work``,
-    when given, receives the shadow work per lane (`_count_shadow_work`)."""
+    when given, receives the shadow work per lane (`_count_shadow_work`).
+    ``occ_override [N, L]``: the occlusion of each sample, given, in place
+    of the shadow scan. ``with_occ`` returns ``(radiance, occluded [N, L],
+    reached [N, L])``, where ``reached`` is the gate of the contribution
+    (facing, ``wi > 0`` and not occluded)."""
     n = hp.shape[0]
     out = torch.zeros((n, 3), dtype=hp.dtype, device=hp.device)
     if not light_idx:
-        return out
+        none = torch.zeros((n, 0), dtype=torch.bool, device=hp.device)
+        return (out, none, none) if with_occ else out
     li = torch.tensor(light_idx, dtype=torch.int64, device=hp.device)
     lp, lrad, le = scene.p[li], scene.rad[li], scene.e[li]
 
@@ -87,9 +98,12 @@ def sample_direct(scene: Scene, cfg: IntegratorConfig,
     facing = wo <= 0.0
     wo = -wo
     wi = vm.dot(sdir, nl[:, None, :])
-    occluded = isect.intersect_p(
-        scene, hp[:, None, :].expand_as(sdir).reshape(-1, 3),
-        sdir.reshape(-1, 3), maxt.reshape(-1)).reshape(length.shape)
+    if occ_override is not None:
+        occluded = occ_override
+    else:
+        occluded = isect.intersect_p(
+            scene, hp[:, None, :].expand_as(sdir).reshape(-1, 3),
+            sdir.reshape(-1, 3), maxt.reshape(-1)).reshape(length.shape)
 
     scale = ((4.0 * math.pi) * lrad * lrad)[None, :] * wi * wo / torch.clamp(
         length * length, min=_TINY)
@@ -102,7 +116,7 @@ def sample_direct(scene: Scene, cfg: IntegratorConfig,
                            torch.ones_like(cast), cast, mask, vacuum=False)
     for slot in range(len(light_idx)):
         out = out + contrib[:, slot]
-    return out
+    return (out, occluded, mask) if with_occ else out
 
 
 def vpl_window(cfg: IntegratorConfig, vpls: VplBuffer, vlp_index: int):
@@ -126,8 +140,11 @@ def vpl_window(cfg: IntegratorConfig, vpls: VplBuffer, vlp_index: int):
 
 def gather_vpls(scene: Scene, cfg: IntegratorConfig, vpls: VplBuffer,
                 vlp_index: int, hp: Tensor, nl: Tensor,
-                work: dict | None = None) -> Tensor:
-    """The VPL gather at ``hp``, averaged over the window: ``[N, 3]``."""
+                work: dict | None = None,
+                occ_override: Tensor | None = None, with_occ: bool = False):
+    """The VPL gather at ``hp``, averaged over the window: ``[N, 3]``.
+    ``occ_override [N, K]`` and ``with_occ`` as in `sample_direct`; the
+    gate of a slot also needs the slot to be valid."""
     w_hp, w_rad, w_nl, w_valid = vpl_window(cfg, vpls, vlp_index)
     k = w_hp.shape[0]
     sdir, length, maxt = _segments(w_hp[None, :, :].expand(
@@ -136,9 +153,12 @@ def gather_vpls(scene: Scene, cfg: IntegratorConfig, vpls: VplBuffer,
     facing = wo <= 0.0
     wo = -wo
     wi = vm.dot(sdir, nl[:, None, :])
-    occluded = isect.intersect_p_vacuum(
-        scene, hp[:, None, :].expand_as(sdir).reshape(-1, 3),
-        sdir.reshape(-1, 3), maxt.reshape(-1)).reshape(length.shape)
+    if occ_override is not None:
+        occluded = occ_override
+    else:
+        occluded = isect.intersect_p_vacuum(
+            scene, hp[:, None, :].expand_as(sdir).reshape(-1, 3),
+            sdir.reshape(-1, 3), maxt.reshape(-1)).reshape(length.shape)
     contrib = w_rad[None, :, :] * (wi * wo)[..., None]
     cast = facing & (wi > 0.0) & w_valid[None, :]
     mask = cast & torch.logical_not(occluded)
@@ -153,18 +173,32 @@ def gather_vpls(scene: Scene, cfg: IntegratorConfig, vpls: VplBuffer,
     # Times the reciprocal, not divided: PyTorch on the card turns a
     # division by a host scalar into this product anyway, so the plain
     # version rounds alike on every device and like the CUDA kernel.
-    return total * (1.0 / k)
+    total = total * (1.0 / k)
+    return (total, occluded, mask) if with_occ else total
 
 
 def sample_lights(scene: Scene, cfg: IntegratorConfig,
                   light_idx: tuple[int, ...], hp: Tensor, nl: Tensor,
                   light_u: Tensor, vpls: VplBuffer | None = None,
                   vlp_index: int | None = None,
-                  work: dict | None = None) -> Tensor:
+                  work: dict | None = None,
+                  occ_light: Tensor | None = None,
+                  occ_vpl: Tensor | None = None, with_occ: bool = False):
     """Full NEE: direct light plus, with VPLs, the ``(direct + vpl) / 2``
-    combine."""
-    direct = sample_direct(scene, cfg, light_idx, hp, nl, light_u, work)
+    combine. ``occ_light [N, L]``/``occ_vpl [N, K]``: occlusion given in
+    place of the shadow scans. ``with_occ`` returns ``(radiance,
+    reached_light [N, L], reached_vpl [N, K] | None)``, the gates of
+    `sample_direct` and `gather_vpls`."""
+    direct = sample_direct(scene, cfg, light_idx, hp, nl, light_u, work,
+                           occ_light, with_occ)
+    if with_occ:
+        direct, _, reached_l = direct
     if not cfg.use_vpl or vpls is None:
-        return direct
-    total = direct + gather_vpls(scene, cfg, vpls, vlp_index, hp, nl, work)
-    return total * 0.5 if cfg.combine_half else total
+        return (direct, reached_l, None) if with_occ else direct
+    vpl = gather_vpls(scene, cfg, vpls, vlp_index, hp, nl, work, occ_vpl,
+                      with_occ)
+    if with_occ:
+        vpl, _, reached_v = vpl
+    total = direct + vpl
+    total = total * 0.5 if cfg.combine_half else total
+    return (total, reached_l, reached_v) if with_occ else total

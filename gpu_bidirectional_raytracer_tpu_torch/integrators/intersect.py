@@ -6,6 +6,8 @@ reference's root choice (the smaller root if > EPSILON, else the larger if
 > EPSILON, else miss), the 1e-6 tangency clamp on the discriminant, a
 nearest-hit scan that keeps the lowest index on ties, and the any-hit
 tests for shadow rays (the vacuum variant lets emitters through).
+`sphere_root` is the same root for one given sphere per lane: what the
+re-walk of the many-sphere gradient uses instead of the scan.
 """
 
 from __future__ import annotations
@@ -75,7 +77,62 @@ def anyhit_tests(scene: Scene, o: Tensor, d: Tensor, maxt: Tensor,
     return (tested & clear_before).sum(dim=-1)
 
 
-def gather_sphere_attrs(scene: Scene, hit_id: Tensor):
-    """Per-lane ``(p, e, c, refl)`` of the spheres ``hit_id [N]``."""
-    return (scene.p[hit_id], scene.e[hit_id], scene.c[hit_id],
-            scene.refl[hit_id])
+_GATHER_CHUNK = 1 << 15   # lanes per one-hot block of the gather's backward
+
+
+class _RowGather(torch.autograd.Function):
+    """``table[idx]`` whose backward sums each row's cotangents as a
+    one-hot product, ``one_hot(idx)^T @ grad``, in blocks of lanes (the
+    JAX package's gather, `integrators/intersect.py:116`). The backward of
+    plain indexing walks the lanes of a repeated index one after another
+    on the card; here 196,608 lanes hit a few of 783 spheres, and a sum
+    by matrix product takes milliseconds instead of a second. The values
+    of the forward are the indexing's; the sums are deterministic."""
+
+    @staticmethod
+    def forward(ctx, table: Tensor, idx: Tensor) -> Tensor:
+        ctx.save_for_backward(idx)
+        ctx.rows = table.shape[0]
+        return table[idx]
+
+    @staticmethod
+    def backward(ctx, grad: Tensor):
+        (idx,) = ctx.saved_tensors
+        out = torch.zeros((ctx.rows, grad.shape[1]), dtype=grad.dtype,
+                          device=grad.device)
+        for lo in range(0, idx.shape[0], _GATHER_CHUNK):
+            part = idx[lo:lo + _GATHER_CHUNK]
+            hot = torch.zeros((part.shape[0], ctx.rows), dtype=grad.dtype,
+                              device=grad.device)
+            hot.scatter_(1, part[:, None], 1.0)
+            out = out + hot.T @ grad[lo:lo + _GATHER_CHUNK]
+        return out, None
+
+
+def gather_sphere_attrs(scene: Scene, hit_id: Tensor, with_rad: bool = False):
+    """Per-lane ``(p, e, c, refl)`` of the spheres ``hit_id [N]``, and
+    their radius last with ``with_rad``: one gather of the float columns
+    (`_RowGather`) and one of the material codes."""
+    table = torch.cat([scene.p, scene.e, scene.c, scene.rad[:, None]], dim=1)
+    rows = _RowGather.apply(table, hit_id)
+    attrs = (rows[:, 0:3], rows[:, 3:6], rows[:, 6:9], scene.refl[hit_id])
+    return attrs + (rows[:, 9],) if with_rad else attrs
+
+
+def sphere_root(o: Tensor, d: Tensor, p: Tensor, rad: Tensor,
+                eps: float = EPSILON) -> Tensor:
+    """Hit distance ``[N]`` of one sphere per lane (``o, d, p [N, 3]``,
+    ``rad [N]``); 0 where it is missed. The expressions of
+    `sphere_distances` in its order, so for the winning sphere of a
+    nearest-hit scan it is the scan's ``t`` bit for bit."""
+    op = p - o
+    b = vm.dot(op, d)
+    opop = vm.dot(op, op)
+    det = b * b - opop + rad * rad
+    hit = det >= 0.0
+    sq = torch.sqrt(torch.clamp(torch.where(hit, det, 1.0), min=1e-6))
+    t1 = b - sq
+    t2 = b + sq
+    zero = torch.zeros_like(t1)
+    t = torch.where(t1 > eps, t1, torch.where(t2 > eps, t2, zero))
+    return torch.where(hit, t, zero)

@@ -36,7 +36,8 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 # Kernel sources by name; each exports its C entry points (`_ENTRIES`).
 SOURCES = {"trace_kernel": CSRC_DIR / "trace_kernel.cu",
-           "grad_kernel": CSRC_DIR / "grad_kernel.cu"}
+           "grad_kernel": CSRC_DIR / "grad_kernel.cu",
+           "bounce_kernel": CSRC_DIR / "bounce_kernel.cu"}
 
 _loaded: dict[str, ctypes.CDLL] = {}
 build_log: dict[str, str] = {}      # nvcc's output (ptxas register counts)
@@ -99,11 +100,15 @@ def build_all() -> dict[str, Path]:
             for name, st in started.items()}
 
 
-_RUN_ARGS = [                                     # shared by the adjoint
+_TABLE_ARGS = [                                   # shared by all five
     ctypes.c_void_p, ctypes.c_int,                # scene, n_spheres
     ctypes.c_void_p, ctypes.c_int,                # vpl, n_vpl
     ctypes.c_void_p, ctypes.c_int,                # keys, n_rows
+    ctypes.c_void_p,                              # streamed tape (or null)
     ctypes.c_int,                                 # n_lights
+]
+
+_RUN_ARGS = _TABLE_ARGS + [                       # shared by the adjoint
     ctypes.c_void_p, ctypes.c_void_p,             # rays_o, rays_d
     ctypes.c_int,                                 # n
     ctypes.c_int, ctypes.c_int,                   # max_depth, n_light_slots
@@ -112,13 +117,18 @@ _RUN_ARGS = [                                     # shared by the adjoint
     ctypes.c_float, ctypes.c_float,               # emission_scale, light_gain
 ]
 
+_BOUNCE_ARGS = _TABLE_ARGS + [                    # shared by the bounce pair
+    ctypes.c_void_p, ctypes.c_int,                # state [14, n], n
+    ctypes.c_int, ctypes.c_int,                   # row0, n_light_slots
+    ctypes.c_int, ctypes.c_int,                   # combine_half, direct_only
+    ctypes.c_uint, ctypes.c_uint,                 # lane_offset, lane_total
+    ctypes.c_float, ctypes.c_float,               # emission_scale, light_gain
+    ctypes.c_int,                                 # threads per block
+]
+
 # Entry points: name -> (source, C function, argument types).
 _ENTRIES = {
-    "trace_kernel": ("trace_kernel", "trace_kernel_launch", [
-        ctypes.c_void_p, ctypes.c_int,            # scene, n_spheres
-        ctypes.c_void_p, ctypes.c_int,            # vpl, n_vpl
-        ctypes.c_void_p, ctypes.c_int,            # keys, n_rows
-        ctypes.c_int,                             # n_lights
+    "trace_kernel": ("trace_kernel", "trace_kernel_launch", _TABLE_ARGS + [
         ctypes.c_void_p, ctypes.c_void_p,         # cam, rays_o
         ctypes.c_void_p,                          # rays_d
         ctypes.c_int, ctypes.c_int, ctypes.c_int,  # n, width, cam_rows
@@ -140,6 +150,13 @@ _ENTRIES = {
         ctypes.c_void_p, ctypes.c_void_p,         # dscene, dvpl partials
         ctypes.c_void_p,                          # loss partials
         ctypes.c_void_p,                          # radiance out (or null)
+        ctypes.c_void_p,                          # stream
+    ]),
+    "bounce_kernel": ("bounce_kernel", "bounce_kernel_launch",
+                      _BOUNCE_ARGS + [ctypes.c_void_p]),   # stream
+    "aux_kernel": ("bounce_kernel", "aux_kernel_launch", _BOUNCE_ARGS + [
+        ctypes.c_void_p,                          # hit ids [n] int32
+        ctypes.c_void_p, ctypes.c_void_p,         # occlusion [L, n], [V, n]
         ctypes.c_void_p,                          # stream
     ]),
 }

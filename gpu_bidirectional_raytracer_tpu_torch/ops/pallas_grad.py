@@ -21,6 +21,9 @@ the hit sphere. The kernels differentiate the port's own expressions, so
 on the card they are held against `trace_diff_plain` and `loss_grad_plain`
 (autograd through `path_tracer.trace`).
 
+Both take their random tape as `ops.pallas_trace.Tape`: mix32 site keys,
+or a streamed ``[K, n]`` tape for a threefry key (the fitter's).
+
 A wrapper given CPU tensors runs the plain version. Given CUDA tensors it
 launches its kernel or raises; it never falls back. Each launch adds one
 to ``LAUNCHES["grad_kernel"]`` or ``LAUNCHES["fused_kernel"]`` (in
@@ -48,30 +51,33 @@ from gpu_bidirectional_raytracer_tpu_torch.ops.pallas_trace import LAUNCHES
 BLOCK = 128             # threads per block of both entry points
 MAX_DEPTH = 16          # depths of saved state per thread (kMaxDepth)
 MAX_SHADOW_SLOTS = 128  # light + VPL slots of saved occlusion bits
-SPHERE_LIMIT = 64       # the kernels' route; more spheres: queue 1 item 10
+SPHERE_LIMIT = 64       # the kernels' route; more spheres take the
+#                         fact kernel and the re-walk (ops.pallas_bounce_grad)
 LOSS_KINDS = {"l2": 0, "log": 1}
 PARAMS = ("p", "rad", "e", "c")   # the scene's differentiable fields
 
 
-def check_supported(scene: Scene, cfg: IntegratorConfig) -> None:
-    """Raise for what the port's differentiable path does not cover yet.
-
-    The carriers of ``vis_grad_tau`` and ``sil_grad_tau`` (ROADMAP queue 1
-    item 9) raise on every device; more than 64 spheres on the card (queue
-    1 item 10) raises here, where the kernels are the route."""
+def check_supported(cfg: IntegratorConfig) -> None:
+    """Raise for what the port's differentiable path does not cover yet:
+    the straight-through carriers of ``vis_grad_tau`` and ``sil_grad_tau``
+    (the gradient carriers of ROADMAP), on every device."""
     if cfg.vis_grad_tau > 0.0:
         raise NotImplementedError(
             "vis_grad_tau > 0: the soft-visibility carrier is not ported "
-            "yet (ROADMAP queue 1 item 9)")
+            "yet")
     if cfg.sil_grad_tau > 0.0:
         raise NotImplementedError(
-            "sil_grad_tau > 0: the silhouette carrier is not ported yet "
-            "(ROADMAP queue 1 item 9)")
-    if scene.device.type == "cuda" and scene.num_spheres > SPHERE_LIMIT:
-        raise NotImplementedError(
-            f"{scene.num_spheres} spheres: the differentiable route for "
-            f"scenes of more than {SPHERE_LIMIT} spheres on the card is not "
-            f"ported yet (ROADMAP queue 1 item 10)")
+            "sil_grad_tau > 0: the silhouette carrier is not ported yet")
+
+
+def _check_sphere_limit(scene: Scene) -> None:
+    """The adjoint kernels take scenes of at most `SPHERE_LIMIT` spheres,
+    as JAX's do; larger ones go to `ops.pallas_bounce_grad`."""
+    if scene.num_spheres > SPHERE_LIMIT:
+        raise ValueError(
+            f"{scene.num_spheres} spheres: the adjoint kernels take at most "
+            f"{SPHERE_LIMIT}; larger scenes take the fact kernel and the "
+            f"re-walk (ops.pallas_bounce_grad.trace_bounce_diff)")
 
 
 def _check_launch(cfg: IntegratorConfig, n_lights: int, n_vpl: int) -> None:
@@ -124,18 +130,21 @@ def _reduce_partials(dtab_part: Tensor, dvpl_part: Tensor,
     return dtab, dvpl
 
 
-def _common_args(scene_tab, vpl_tab, keys, n_rows, n_lights, o, d, n,
+def _common_args(scene_tab, vpl_tab, tape, n_lights, o, d, n,
                  cfg: IntegratorConfig, lane_offset, lane_total) -> tuple:
+    pallas_trace.check_tape(tape, n, scene_tab.device)
     return (scene_tab.data_ptr(), scene_tab.shape[0],
             vpl_tab.data_ptr(), vpl_tab.shape[0],
-            keys.data_ptr(), n_rows, n_lights,
+            tape.keys.data_ptr(), tape.n_rows,
+            None if tape.stream is None else tape.stream.data_ptr(),
+            n_lights,
             o.data_ptr(), d.data_ptr(), n,
             cfg.max_depth, max(n_lights, 1), int(cfg.combine_half),
             lane_offset, lane_total, cfg.emission_scale, cfg.light_gain)
 
 
-def grad_launch(scene_tab: Tensor, vpl_tab: Tensor, keys: Tensor,
-                n_rows: int, cfg: IntegratorConfig,
+def grad_launch(scene_tab: Tensor, vpl_tab: Tensor,
+                tape: pallas_trace.Tape, cfg: IntegratorConfig,
                 light_idx: tuple[int, ...], rays: Rays, cot: Tensor,
                 lane_offset: int = 0, lane_total: int | None = None):
     """One ``grad_kernel`` launch: ``(dscene_tab [S,16], dvpl_tab [V,16],
@@ -152,7 +161,7 @@ def grad_launch(scene_tab: Tensor, vpl_tab: Tensor, keys: Tensor,
     d_o = torch.empty((n, 3), dtype=torch.float32, device=dev)
     d_d = torch.empty((n, 3), dtype=torch.float32, device=dev)
     _run("grad_kernel", _common_args(
-        scene_tab, vpl_tab, keys, n_rows, len(light_idx), rays.o.detach(),
+        scene_tab, vpl_tab, tape, len(light_idx), rays.o.detach(),
         rays.d.detach(), n, cfg, lane_offset,
         n if lane_total is None else lane_total) + (
         cot.data_ptr(), dtab_part.data_ptr(), dvpl_part.data_ptr(),
@@ -161,8 +170,8 @@ def grad_launch(scene_tab: Tensor, vpl_tab: Tensor, keys: Tensor,
     return dtab, dvpl, d_o, d_d
 
 
-def fused_launch(scene_tab: Tensor, vpl_tab: Tensor, keys: Tensor,
-                 n_rows: int, cfg: IntegratorConfig,
+def fused_launch(scene_tab: Tensor, vpl_tab: Tensor,
+                 tape: pallas_trace.Tape, cfg: IntegratorConfig,
                  light_idx: tuple[int, ...], rays: Rays, target: Tensor,
                  loss: str = "l2", radiance_out: Tensor | None = None):
     """One ``fused_kernel`` launch: ``(loss, dscene_tab, dvpl_tab)``.
@@ -188,7 +197,7 @@ def fused_launch(scene_tab: Tensor, vpl_tab: Tensor, keys: Tensor,
         raise ValueError(f"radiance_out must be a contiguous float32 [N, 3] "
                          f"tensor on {dev}")
     _run("fused_kernel", _common_args(
-        scene_tab, vpl_tab, keys, n_rows, len(light_idx),
+        scene_tab, vpl_tab, tape, len(light_idx),
         rays.o.detach(), rays.d.detach(), n, cfg, 0, n) + (
         target.data_ptr(), LOSS_KINDS[loss], 1.0 / (3.0 * n),
         dtab_part.data_ptr(), dvpl_part.data_ptr(), loss_part.data_ptr(),
@@ -203,27 +212,27 @@ class _TraceDiff(torch.autograd.Function):
     ``grad_kernel``. Inputs: scene table, VPL table, rays.o, rays.d."""
 
     @staticmethod
-    def forward(ctx, scene_tab, vpl_tab, ro, rd, keys, n_rows, cfg,
-                light_idx, lane_offset, lane_total):
+    def forward(ctx, scene_tab, vpl_tab, ro, rd, tape, cfg, light_idx,
+                lane_offset, lane_total):
         n = ro.shape[0]
         call = pallas_trace.make_launch(
-            scene_tab, vpl_tab, keys, n_rows, cfg, light_idx, n,
+            scene_tab, vpl_tab, tape, cfg, light_idx, n,
             rays=Rays(o=ro, d=rd), lane_offset=lane_offset,
             lane_total=lane_total)
         out = call()
-        ctx.save_for_backward(scene_tab, vpl_tab, ro, rd, keys)
-        ctx.meta = (n_rows, cfg, light_idx, lane_offset, lane_total)
+        ctx.save_for_backward(scene_tab, vpl_tab, ro, rd)
+        ctx.meta = (tape, cfg, light_idx, lane_offset, lane_total)
         return out
 
     @staticmethod
     @once_differentiable
     def backward(ctx, cot):
-        scene_tab, vpl_tab, ro, rd, keys = ctx.saved_tensors
-        n_rows, cfg, light_idx, lane_offset, lane_total = ctx.meta
+        scene_tab, vpl_tab, ro, rd = ctx.saved_tensors
+        tape, cfg, light_idx, lane_offset, lane_total = ctx.meta
         dtab, dvpl, d_o, d_d = grad_launch(
-            scene_tab, vpl_tab, keys, n_rows, cfg, light_idx,
-            Rays(o=ro, d=rd), cot, lane_offset, lane_total)
-        return dtab, dvpl, d_o, d_d, None, None, None, None, None, None
+            scene_tab, vpl_tab, tape, cfg, light_idx, Rays(o=ro, d=rd), cot,
+            lane_offset, lane_total)
+        return dtab, dvpl, d_o, d_d, None, None, None, None, None
 
 
 def trace_diff_plain(scene: Scene, cfg: IntegratorConfig,
@@ -247,15 +256,17 @@ def trace_pallas_diff(scene: Scene, cfg: IntegratorConfig,
                       lane_total: int | None = None) -> Tensor:
     """Radiance ``[N, 3]`` of the rays, differentiable w.r.t. the scene's
     ``p/rad/e/c``, the VPL buffer's ``hp/rad/nl`` and the rays."""
-    check_supported(scene, cfg)
+    check_supported(cfg)
     if scene.device.type == "cpu":
         return trace_diff_plain(scene, cfg, light_idx, rays, key, sample,
                                 vpls, vlp_index, lane_offset, lane_total)
+    _check_sphere_limit(scene)
     n = rays.o.shape[0]
-    scene_tab, vpl_tab, keys, n_rows = pallas_trace.launch_tables(
-        scene, cfg, light_idx, key, sample, vpls, vlp_index)
+    scene_tab, vpl_tab, tape = pallas_trace.launch_tables(
+        scene, cfg, light_idx, key, sample, vpls, vlp_index, n,
+        lane_offset=lane_offset, lane_total=lane_total)
     return _TraceDiff.apply(scene_tab, vpl_tab, rays.o.contiguous(),
-                            rays.d.contiguous(), keys, n_rows, cfg,
+                            rays.d.contiguous(), tape, cfg,
                             tuple(light_idx), lane_offset or 0,
                             n if lane_total is None else lane_total)
 
@@ -331,10 +342,11 @@ def trace_pallas_loss_grad(scene: Scene, cfg: IntegratorConfig,
     without VPLs."""
     if loss not in LOSS_KINDS:
         raise ValueError(f"fused step supports loss 'l2'/'log', got {loss!r}")
-    check_supported(scene, cfg)
+    check_supported(cfg)
     if scene.device.type == "cpu":
         return loss_grad_plain(scene, cfg, light_idx, rays, key, sample,
                                target, vpls, vlp_index, loss)
+    _check_sphere_limit(scene)
     bidir = cfg.use_vpl and vpls is not None
     n = rays.o.shape[0]
     tgt = target.reshape(n, 3)
@@ -342,10 +354,10 @@ def trace_pallas_loss_grad(scene: Scene, cfg: IntegratorConfig,
         tgt = torch.log1p(tgt)   # the kernel compares log1p(radiance)
     with torch.enable_grad():
         sc, vb, sl, vl = param_leaves(scene, vpls if bidir else None)
-        scene_tab, vpl_tab, keys, n_rows = pallas_trace.launch_tables(
-            sc, cfg, light_idx, key, sample, vb, vlp_index)
+        scene_tab, vpl_tab, tape = pallas_trace.launch_tables(
+            sc, cfg, light_idx, key, sample, vb, vlp_index, n)
     value, dtab, dvpl = fused_launch(
-        scene_tab, vpl_tab, keys, n_rows, cfg, tuple(light_idx),
+        scene_tab, vpl_tab, tape, cfg, tuple(light_idx),
         Rays(o=rays.o.contiguous(), d=rays.d.contiguous()), tgt, loss)
     outs, cots = [scene_tab], [dtab]
     if bidir:

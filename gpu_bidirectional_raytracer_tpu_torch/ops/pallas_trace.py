@@ -10,8 +10,11 @@ the note at the top of the source for its design and bound):
 - `trace_pallas` (ray mode): the caller's rays, for a window
   ``[lane_offset, lane_offset + N)`` of a ``lane_total``-wide frame.
 
-The random tape is regenerated in the kernel from per-row site keys
-(`rng.site_key_rows`), bit for bit `rng.site_uniforms`.
+The random tape of a mix32 key is regenerated in the kernel from per-row
+site keys (`rng.site_key_rows`), bit for bit `rng.site_uniforms`; for any
+other key (threefry) `tape_table` builds the ``[K, n]`` tape on the card
+(`rng.rows_uniforms`: `rng.site_uniforms`' values, every row in one
+pass), in the same row order, and the kernel reads it (`Tape`). All five kernels take their tape this way.
 
 A wrapper given CPU tensors runs its plain PyTorch version
 (`trace_camera_plain`, or `path_tracer.trace` in ray mode). Given CUDA
@@ -20,6 +23,8 @@ adds one to ``LAUNCHES["trace_kernel"]``.
 """
 
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import torch
 from torch import Tensor
@@ -37,8 +42,10 @@ from gpu_bidirectional_raytracer_tpu_torch.integrators import path_tracer
 from gpu_bidirectional_raytracer_tpu_torch.integrators.direct import vpl_window
 
 # Launches of each CUDA kernel, counted where the kernel is launched
-# (`ops.pallas_grad` counts the adjoint kernels here too).
-LAUNCHES = {"trace_kernel": 0, "grad_kernel": 0, "fused_kernel": 0}
+# (`ops.pallas_grad`, `ops.pallas_bounce` and `ops.pallas_bounce_grad`
+# count theirs here too).
+LAUNCHES = {"trace_kernel": 0, "grad_kernel": 0, "fused_kernel": 0,
+            "bounce_kernel": 0, "aux_kernel": 0}
 
 _CAM_ROWS = 2                 # tape rows of the camera jitter
 _SMEM_LIMIT = 48 * 1024       # static shared-memory budget of one block
@@ -79,28 +86,60 @@ def _vpl_table(cfg: IntegratorConfig, vpls: VplBuffer | None,
                                   device=device)], dim=1).contiguous()
 
 
-def _key_table(cfg: IntegratorConfig, light_idx: tuple[int, ...],
-               key: rng.Key, sample: int, cam_jitter: bool,
-               device) -> tuple[Tensor, int]:
-    """Tape site keys ``[K, 4]`` (k0, k1, block row, 0), then the light
-    ids, as one int32 tensor holding uint32 bits. Per depth the rows are
-    the LIGHT_UV site's u1 rows of every light slot, then its u2 rows, then
-    DIFF_UV rows 0-1 and REFR_RR row 0 — the order the kernel reads."""
-    n_slots = max(len(light_idx), 1)
-    rows: list[tuple[int, int, int]] = []
-    if cam_jitter:
-        rows += rng.site_key_rows(key, sample, 0, rng.CAM_JITTER, [0, 1])
+class Tape(NamedTuple):
+    """The random tape of one launch, in the kernels' row order
+    (`tape_sites`): mix32 site keys regenerated in the kernel, or a
+    streamed buffer."""
+
+    keys: Tensor               # int32 words: [n_rows, 4] site keys (k0,
+    #                            k1, block row, 0), then the light ids
+    n_rows: int                # site-key rows; 0 for a streamed tape
+    stream: Tensor | None      # [rows, n] float32 streamed tape, or None
+
+
+def tape_sites(cfg: IntegratorConfig, n_slots: int, cam_jitter: bool
+               ) -> list[tuple[int, int, list[int]]]:
+    """``(depth, purpose, block rows)`` of every draw site in the kernels'
+    order: the camera jitter's two rows (camera mode), then per depth the
+    LIGHT_UV site's u1 rows of every light slot, its u2 rows, DIFF_UV
+    rows 0-1 and REFR_RR row 0."""
+    sites = [(0, rng.CAM_JITTER, [0, 1])] if cam_jitter else []
     for depth in range(cfg.max_depth):
-        rows += rng.site_key_rows(
-            key, sample, depth, rng.LIGHT_UV,
-            list(range(0, 2 * n_slots, 2)) + list(range(1, 2 * n_slots, 2)))
-        rows += rng.site_key_rows(key, sample, depth, rng.DIFF_UV, [0, 1])
-        rows += rng.site_key_rows(key, sample, depth, rng.REFR_RR, [0])
-    words = [w for k0, k1, r in rows for w in (k0, k1, r, 0)]
+        sites.append((depth, rng.LIGHT_UV,
+                      list(range(0, 2 * n_slots, 2))
+                      + list(range(1, 2 * n_slots, 2))))
+        sites.append((depth, rng.DIFF_UV, [0, 1]))
+        sites.append((depth, rng.REFR_RR, [0]))
+    return sites
+
+
+def tape_table(cfg: IntegratorConfig, light_idx: tuple[int, ...],
+               key: rng.Key, sample: int, cam_jitter: bool, n: int,
+               device, lane_offset: int | None = None,
+               lane_total: int | None = None) -> Tape:
+    """The tape of a launch over ``n`` lanes (the window ``[lane_offset,
+    lane_offset + n)`` of a ``lane_total``-lane frame). A mix32 key ships
+    one ``(k0, k1, row)`` per row; any other key a ``[rows, n]`` tape made
+    on ``device`` by `rng.rows_uniforms`, the values of
+    `rng.site_uniforms`."""
+    sites = tape_sites(cfg, max(len(light_idx), 1), cam_jitter)
+    rows = [r for depth, purpose, block in sites
+            for r in rng.site_key_rows(key, sample, depth, purpose, block)]
+    words: list[int] = []
+    stream = None
+    if rng.key_impl(key) == "mix32":
+        words = [w for k0, k1, r in rows for w in (k0, k1, r, 0)]
+        n_rows = len(rows)
+    else:
+        stream = rng.rows_uniforms(
+            rng.key_impl(key), rows, n, device=device,
+            lane_offset=lane_offset if lane_total is not None else None,
+            lane_total=lane_total)
+        n_rows = 0
     words += list(light_idx)
     # uint32 bits in int32 storage: the kernel reads them as uint32_t.
     words = [w - (1 << 32) if w >= (1 << 31) else w for w in words]
-    return _to_device(words, torch.int32, device), len(rows)
+    return Tape(_to_device(words, torch.int32, device), n_rows, stream)
 
 
 def _camera_table(cam: Camera, cfg: IntegratorConfig, width: int,
@@ -140,22 +179,23 @@ class TraceLaunch:
 
 def launch_tables(scene: Scene, cfg: IntegratorConfig,
                   light_idx: tuple[int, ...], key: rng.Key, sample: int,
-                  vpls: VplBuffer | None, vlp_index: int | None,
-                  cam_jitter: bool = False):
-    """``(scene_tab, vpl_tab, keys, n_rows)`` of one launch on the card.
-    The two float tables are differentiable functions of the scene and
-    the VPL buffer (`ops.pallas_grad` pulls gradients back through them).
-    """
+                  vpls: VplBuffer | None, vlp_index: int | None, n: int,
+                  cam_jitter: bool = False, lane_offset: int | None = None,
+                  lane_total: int | None = None):
+    """``(scene_tab, vpl_tab, tape)`` of one launch over ``n`` lanes on
+    the card. The two float tables are differentiable functions of the
+    scene and the VPL buffer (`ops.pallas_grad` pulls gradients back
+    through them)."""
     dev = scene.device
     if dev.type != "cuda":
         raise ValueError(f"the CUDA kernels run on a CUDA device, got {dev}")
     if any(not 0 <= i < scene.num_spheres for i in light_idx):
         raise ValueError(f"light indices {light_idx} out of range for "
                          f"{scene.num_spheres} spheres")
-    keys, n_rows = _key_table(cfg, light_idx, key, sample,
-                              cam_jitter=cam_jitter, device=dev)
+    tape = tape_table(cfg, light_idx, key, sample, cam_jitter, n, dev,
+                      lane_offset, lane_total)
     return (_scene_table(scene), _vpl_table(cfg, vpls, vlp_index, dev),
-            keys, n_rows)
+            tape)
 
 
 def check_rays(o: Tensor, d: Tensor, n: int, dev) -> None:
@@ -166,20 +206,30 @@ def check_rays(o: Tensor, d: Tensor, n: int, dev) -> None:
                              f"tensors on {dev}")
 
 
-def make_launch(scene_tab: Tensor, vpl_tab: Tensor, keys: Tensor,
-                n_rows: int, cfg: IntegratorConfig,
-                light_idx: tuple[int, ...], n: int, *,
+def check_tape(tape: Tape, n: int, dev) -> None:
+    if tape.stream is not None and (
+            tape.stream.device != dev or tape.stream.dtype != torch.float32
+            or tape.stream.dim() != 2 or tape.stream.shape[1] != n
+            or not tape.stream.is_contiguous()):
+        raise ValueError(f"a streamed tape must be a contiguous float32 "
+                         f"[rows, {n}] tensor on {dev}")
+
+
+def make_launch(scene_tab: Tensor, vpl_tab: Tensor, tape: Tape,
+                cfg: IntegratorConfig, light_idx: tuple[int, ...], n: int, *,
                 cam_tab: Tensor | None = None, width: int = 0,
                 rays: Rays | None = None, lane_offset: int = 0,
                 lane_total: int | None = None) -> TraceLaunch:
     """The launch of `trace_kernel` on tables already on the card."""
     dev = scene_tab.device
+    keys = tape.keys
     smem = 4 * (scene_tab.numel() + vpl_tab.numel() + keys.numel())
     if smem > _SMEM_LIMIT:
         raise ValueError(f"trace_kernel tables need {smem} bytes of shared "
                          f"memory, above {_SMEM_LIMIT}")
+    check_tape(tape, n, dev)
     scene_tab, vpl_tab = scene_tab.detach(), vpl_tab.detach()
-    tables = [scene_tab, vpl_tab, keys]
+    tables = [scene_tab, vpl_tab, keys, tape.stream]
     if cam_tab is not None:
         tables.append(cam_tab)
     if rays is not None:
@@ -188,7 +238,9 @@ def make_launch(scene_tab: Tensor, vpl_tab: Tensor, keys: Tensor,
     out = torch.empty((n, 3), dtype=torch.float32, device=dev)
     args = (scene_tab.data_ptr(), scene_tab.shape[0],
             vpl_tab.data_ptr(), vpl_tab.shape[0],
-            keys.data_ptr(), n_rows, len(light_idx),
+            keys.data_ptr(), tape.n_rows,
+            None if tape.stream is None else tape.stream.data_ptr(),
+            len(light_idx),
             None if cam_tab is None else cam_tab.data_ptr(),
             None if rays is None else rays.o.data_ptr(),
             None if rays is None else rays.d.data_ptr(),
@@ -208,10 +260,11 @@ def prepare_launch(scene: Scene, cfg: IntegratorConfig,
                    rays: Rays | None = None, lane_offset: int = 0,
                    lane_total: int | None = None) -> TraceLaunch:
     """Check the inputs and build the tables of one kernel launch."""
-    scene_tab, vpl_tab, keys, n_rows = launch_tables(
-        scene, cfg, light_idx, key, sample, vpls, vlp_index,
-        cam_jitter=cam_tab is not None)
-    return make_launch(scene_tab, vpl_tab, keys, n_rows, cfg, light_idx, n,
+    scene_tab, vpl_tab, tape = launch_tables(
+        scene, cfg, light_idx, key, sample, vpls, vlp_index, n,
+        cam_jitter=cam_tab is not None, lane_offset=lane_offset,
+        lane_total=lane_total)
+    return make_launch(scene_tab, vpl_tab, tape, cfg, light_idx, n,
                        cam_tab=cam_tab, width=width, rays=rays,
                        lane_offset=lane_offset, lane_total=lane_total)
 

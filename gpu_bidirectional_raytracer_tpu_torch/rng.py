@@ -1,26 +1,37 @@
-"""The mix32 counter-based random tape, bit for bit as in the JAX package.
+"""The counter-based random tapes, bit for bit as in the JAX package.
 
-Port of the ``mix32`` implementation of ``gpu_bidirectional_raytracer_tpu/
-rng.py``. Every draw is addressed by ``(key, sample, depth, purpose)``
-through a chain of fold-ins, and element ``[j, i]`` of a site's
-``[k, lane_total]`` block is
+Port of ``gpu_bidirectional_raytracer_tpu/rng.py``: every draw is
+addressed by ``(key, sample, depth, purpose)`` through a chain of
+fold-ins, and element ``[j, i]`` of a site's ``[k, lane_total]`` block is
+a pure function of the site key and the counter ``j * lane_total + i``.
+Two implementations sit behind it, and the key carries which, as JAX's
+typed keys do:
 
-    x = (j * lane_total + i) ^ k0
-    x ^= x >> 17;  x *= 0xed5ad4bb
-    x += k1
-    x ^= x >> 11;  x *= 0xac4c1b51
-    x ^= x >> 15;  x *= 0x31848bab
-    x ^= x >> 14
-    u = (x >> 9) * 2^-23
+- ``mix32`` (the default; a plain pair of ints): the frozen hash
 
-all modulo 2^32. Keys are pairs of Python ints, derived on the host. The
-per-lane bits are computed in int64 tensors masked to 32 bits, because
-torch on the CPU has no uint32 add or shift; 32x32-bit products are split
-in 16-bit halves so that no int64 product overflows. The same functions
-run on Python ints, which is how keys are derived.
+      x = ctr ^ k0
+      x ^= x >> 17;  x *= 0xed5ad4bb
+      x += k1
+      x ^= x >> 11;  x *= 0xac4c1b51
+      x ^= x >> 15;  x *= 0x31848bab
+      x ^= x >> 14
 
-The CUDA eye-path kernel regenerates the tape in registers from the site
-keys that `site_key_rows` lists, with native ``uint32_t`` arithmetic.
+- ``threefry`` (a :class:`ThreefryKey`): JAX's partitionable
+  threefry2x32, the tape of ``jax.random.key(seed)``. The bits of counter
+  ``c`` are ``y0 ^ y1`` with ``(y0, y1) = threefry2x32(key, (c >> 32, c &
+  0xffffffff))``, and ``fold_in(key, d)`` is ``threefry2x32(key, (0,
+  d))``.
+
+Both map bits to ``u = (x >> 9) * 2^-23``, all arithmetic modulo 2^32.
+Keys are pairs of Python ints, derived on the host. The per-lane bits are
+computed in int64 tensors masked to 32 bits, because torch on the CPU has
+no uint32 add or shift; 32x32-bit products are split in 16-bit halves so
+that no int64 product overflows. The same functions run on Python ints,
+which is how keys are derived.
+
+The CUDA kernels regenerate a mix32 tape in registers from the site keys
+that `site_key_rows` lists; a threefry tape is built here, on the device,
+and streamed to them as a ``[K, n]`` buffer.
 """
 
 from __future__ import annotations
@@ -41,7 +52,26 @@ REFR_RR = 3        # Fresnel Russian-roulette branch
 LIGHT_RAY_UV = 4   # light-subpath emission point + direction
 LIGHT_SCATTER = 5  # light-subpath bounce scatter
 
-Key = tuple[int, int]
+_TF_ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
+_TF_PARITY = 0x1BD11BDA
+
+IMPLS = ("mix32", "threefry")
+
+
+class ThreefryKey(tuple):
+    """A threefry2x32 key: its two words, typed so that every function of
+    this module draws the threefry tape from it."""
+
+    __slots__ = ()
+    impl = "threefry"
+
+
+Key = tuple[int, int]   # a mix32 key; a ThreefryKey is one too by shape
+
+
+def key_impl(key: Key) -> str:
+    """``"mix32"`` or ``"threefry"``: the tape that ``key`` draws."""
+    return getattr(key, "impl", "mix32")
 
 
 def _mul32(x, m: int):
@@ -66,10 +96,37 @@ def _mix32(x, k1):
     return x
 
 
-def make_key(seed: int) -> Key:
-    """The mix32 key of an integer seed, as JAX derives it with 64-bit
-    mode off (the seed becomes an int32, so its high word is 0)."""
+def _rotl(x, r: int):
+    return ((x << r) & MASK32) | (x >> (32 - r))
+
+
+def _threefry2x32(k0: int, k1: int, x0, x1):
+    """Threefry-2x32, 20 rounds (JAX's ``threefry2x32``), on words below
+    2^32 (ints or int64 tensors)."""
+    ks = (k0, k1, k0 ^ k1 ^ _TF_PARITY)
+    x0 = (x0 + ks[0]) & MASK32
+    x1 = (x1 + ks[1]) & MASK32
+    for i in range(5):
+        for r in _TF_ROTATIONS[i % 2]:
+            x0 = (x0 + x1) & MASK32
+            x1 = _rotl(x1, r) ^ x0
+        x0 = (x0 + ks[(i + 1) % 3]) & MASK32
+        x1 = (x1 + ks[(i + 2) % 3] + i + 1) & MASK32
+    return x0, x1
+
+
+def make_key(seed: int, impl: str | None = None) -> Key:
+    """The key of an integer seed for ``impl`` (None or ``"mix32"``, or
+    ``"threefry"``), as JAX derives it with 64-bit mode off: the seed
+    becomes an int32, so its high word is 0. ``"rbg"`` is not ported."""
     lo = int(seed) & MASK32
+    if impl == "threefry":
+        return ThreefryKey((0, lo))
+    if impl == "rbg":
+        raise NotImplementedError("the rbg tape (XLA's RngBitGenerator) is "
+                                  "not ported")
+    if impl not in (None, "mix32"):
+        raise ValueError(f"unknown tape {impl!r}")
     hi = 0
     k0 = _mix32(lo ^ _MIX32_IV[0], _MIX32_IV[1])
     k1 = _mix32((hi + _MIX32_GOLD) & MASK32, k0)
@@ -77,9 +134,11 @@ def make_key(seed: int) -> Key:
 
 
 def fold_in(key: Key, data: int) -> Key:
-    """``jax.random.fold_in`` for a mix32 key."""
+    """``jax.random.fold_in`` for either kind of key."""
     d = int(data) & MASK32
     k0, k1 = key
+    if key_impl(key) == "threefry":
+        return ThreefryKey(_threefry2x32(k0, k1, 0, d))
     n0 = _mix32(k0 ^ d, k1)
     n1 = _mix32((k1 + _mul32(d, _MIX32_GOLD)) & MASK32, n0)
     return n0, n1
@@ -91,8 +150,12 @@ def stream_key(key: Key, sample: int, depth: int, purpose: int) -> Key:
 
 
 def random_bits(key: Key, ctr: Tensor) -> Tensor:
-    """mix32 bits (int64 holding uint32) at the counters ``ctr``."""
+    """The bits (int64 holding uint32) at the counters ``ctr`` (int64, at
+    or above 0)."""
     k0, k1 = key
+    if key_impl(key) == "threefry":
+        y0, y1 = _threefry2x32(k0, k1, ctr >> 32, ctr & MASK32)
+        return y0 ^ y1
     return _mix32((ctr & MASK32) ^ k0, k1)
 
 
@@ -134,7 +197,30 @@ def site_uniforms(key: Key, sample: int, depth: int, purpose: int,
 
 def site_key_rows(key: Key, sample: int, depth: int, purpose: int,
                   rows: list[int]) -> list[tuple[int, int, int]]:
-    """``(k0, k1, row)`` for the given block rows of one draw site: what
-    the CUDA kernel needs to regenerate those tape rows in registers."""
+    """``(k0, k1, row)`` for the given block rows of one draw site: the
+    site key's words and the row. The CUDA kernels regenerate mix32 rows
+    from them in registers; `rows_uniforms` makes the rows of any key."""
     k0, k1 = stream_key(key, sample, depth, purpose)
     return [(k0, k1, r) for r in rows]
+
+
+def rows_uniforms(impl: str, key_rows: list[tuple[int, int, int]], n: int,
+                  *, device: str | torch.device,
+                  lane_offset: int | None = None,
+                  lane_total: int | None = None) -> Tensor:
+    """``[R, n]`` float32: row ``i`` is block row ``key_rows[i][2]`` of
+    the site whose key words are ``key_rows[i][:2]`` (`site_key_rows`),
+    for lanes ``[lane_offset, lane_offset + n)`` of a ``lane_total``-lane
+    block (default: the ``n`` lanes). The same values as `site_uniforms`
+    row by row, made in one pass over all the rows."""
+    words = torch.tensor(key_rows, dtype=torch.int64,
+                         device=device).reshape(-1, 3)
+    k0, k1, row = words[:, 0:1], words[:, 1:2], words[:, 2:3]
+    total = n if lane_total is None else lane_total
+    cols = torch.arange(n, dtype=torch.int64, device=device) + int(
+        lane_offset or 0)
+    ctr = row * total + cols[None, :]
+    if impl == "threefry":
+        y0, y1 = _threefry2x32(k0, k1, ctr >> 32, ctr & MASK32)
+        return bits_to_uniform(y0 ^ y1)
+    return bits_to_uniform(_mix32((ctr & MASK32) ^ k0, k1))

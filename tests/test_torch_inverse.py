@@ -1,12 +1,14 @@
-"""The port's `InverseRenderer` against the JAX package's update rule.
+"""The port's `InverseRenderer` against the JAX package's.
 
-The JAX fitter draws its tape from ``jax.random.key(seed)`` (threefry) and
-the port's from the mix32 ``rng.make_key(seed)``, so the two fitters
-cannot be run side by side. The test replays JAX's rule instead: JAX's
-``render_loss_grad(backend="xla")`` on the port's keys (``make_key(seed)``,
-folded with the step when resampling), then ``optax.adam`` and the
-fitter's projections, and holds the port's parameters to it after each of
-3 steps: to 1e-5 of the parameter's value, plus 1e-4 of the distance Adam
+Both fitters draw their tapes from the threefry key of the seed
+(``jax.random.key(seed)``; the port's ``rng.make_key(seed, "threefry")``),
+folded with the step when resampling, so the port's fitter runs beside the
+JAX class itself (`test_inverse_steps_match_jax_fitter`). With its keys
+swapped for mix32 keys (the render tape), the test also replays JAX's
+rule: JAX's ``render_loss_grad(backend="xla")`` on the mix32 keys, then
+``optax.adam`` and the fitter's projections. Both hold
+the port's parameters to JAX's after each of 3 steps (2 beside the JAX
+class): to 1e-5 of the parameter's value, plus 1e-4 of the distance Adam
 can move it (``lr`` per step). The second term is there because Adam
 divides each gradient by its own running scale, so a small gradient's
 relative error reaches the step undiminished: sphere 1's z-gradient
@@ -122,7 +124,7 @@ CASES = {
 
 
 @pytest.mark.parametrize("case", sorted(CASES))
-def test_inverse_steps_match_jax_update_rule(case):
+def test_inverse_steps_match_jax_update_rule(case, monkeypatch):
     kw = dict(CASES[case])
     vpl = kw.pop("vpl")
     scene, cam, cfg, li, img = _setup(vpl)
@@ -130,6 +132,10 @@ def test_inverse_steps_match_jax_update_rule(case):
     want = _jax_replay(scene, cam, cfg, li, img, lr=kw["lr"],
                        optimize=kw["optimize"], resample=kw["resample"],
                        loss=loss, grad_mask=kw.get("grad_mask"))
+    # The fitter's threefry keys swapped for mix32 keys of the same seed.
+    mix32_key = trng.make_key
+    monkeypatch.setattr(TG.rng, "make_key",
+                        lambda seed, impl=None: mix32_key(seed))
     inv = TG.InverseRenderer(
         scene=to_torch_scene(scene), cam=to_torch_camera(cam),
         target=torch.tensor(np.asarray(img)), cfg=to_torch_config(cfg),
@@ -257,20 +263,22 @@ def test_projections_match_jax(monkeypatch):
 
 
 def test_unported_settings_raise_on_cpu():
-    """The carriers of vis_grad_tau and sil_grad_tau (ROADMAP queue 1 item
-    9) and the 'mxu' backend are not ported: they raise on every device,
-    not only on the card."""
+    """The gradient carriers of vis_grad_tau and sil_grad_tau and the 'mxu'
+    backend are not ported: they raise on every device, not only on the
+    card."""
     scene, cam, cfg, li, img = _setup(False)
     tscene, tcam = to_torch_scene(scene), to_torch_camera(cam)
     target = torch.tensor(np.asarray(img))
     key = key_words(jrng.make_key(0))
-    for field in ("vis_grad_tau", "sil_grad_tau"):
+    carriers = {"vis_grad_tau": "soft-visibility carrier",
+                "sil_grad_tau": "silhouette carrier"}
+    for field, carrier in carriers.items():
         tcfg = dataclasses.replace(to_torch_config(cfg), **{field: 0.5})
         for backend in ("auto", "pallas", "xla"):
-            with pytest.raises(NotImplementedError, match="queue 1 item 9"):
+            with pytest.raises(NotImplementedError, match=carrier):
                 TG.render_loss_grad(tscene, tcam, key, target, tcfg, W, H,
                                     li, 1, "l2", backend)
-        with pytest.raises(NotImplementedError, match="queue 1 item 9"):
+        with pytest.raises(NotImplementedError, match=carrier):
             TG.render_radiance(tscene, tcam, key, tcfg, W, H, li, 1)
         inv = TG.InverseRenderer(scene=tscene, cam=tcam, target=target,
                                  cfg=tcfg, width=W, height=H)
@@ -309,3 +317,79 @@ def test_default_config_routes_on_cpu():
         "l2_unbiased", "xla", ("p", "rad"))
     assert np.isfinite(inv.step())
     assert inv._step == 1
+
+
+@pytest.mark.parametrize("case", ["albedo_fixed_l2",
+                                  "geometry_resampled_unbiased"])
+def test_inverse_steps_match_jax_fitter(case, monkeypatch):
+    """The port's fitter with its defaults against the JAX
+    `InverseRenderer` itself, seed 0, two steps: both draw threefry keys,
+    so they take the same steps. JAX's `render_loss_grad` runs op by op
+    (its jitted form costs minutes of compiles here)."""
+    kw = dict(CASES[case])
+    vpl = kw.pop("vpl")
+    scene, cam, cfg, li, img = _setup(vpl)
+    jitted = JG.render_loss_grad
+
+    def eager(*args):
+        with jax.disable_jit():
+            return jitted.__wrapped__(*args)
+
+    monkeypatch.setattr(JG, "render_loss_grad", eager)
+    jinv = JG.InverseRenderer(scene=scene, cam=cam, target=img, cfg=cfg,
+                              width=W, height=H, spp=1, **kw)
+    tinv = TG.InverseRenderer(
+        scene=to_torch_scene(scene), cam=to_torch_camera(cam),
+        target=torch.tensor(np.asarray(img)), cfg=to_torch_config(cfg),
+        width=W, height=H, spp=1, **kw)
+    assert (tinv.loss, tinv.backend) == (jinv.loss, jinv.backend)
+    for step in range(2):
+        want = jinv.step()
+        got = tinv.step()
+        assert got == pytest.approx(want, rel=1e-5)
+        for k in kw["optimize"]:
+            np.testing.assert_allclose(
+                getattr(tinv.scene, k).numpy(),
+                np.asarray(getattr(jinv.scene, k)), rtol=PARAM_RTOL,
+                atol=STEP_RTOL * kw["lr"] * (step + 1),
+                err_msg=f"{case} step {step} {k}")
+
+
+def test_fitter_keys_are_jax_threefry_keys():
+    """The fitter's default keys are ``jax.random.key(seed)``, folded
+    with the step when resampling, word for word."""
+    for seed, step in ((0, 0), (0, 5), (7, 3)):
+        want = key_words(jax.random.fold_in(jax.random.key(seed), step))
+        got = trng.fold_in(trng.make_key(seed, "threefry"), step)
+        assert got == want and trng.key_impl(got) == "threefry"
+
+
+def test_fitter_auto_backend_is_jax_rule():
+    """``"auto"``: the kernels on the card up to 64 spheres, the plain
+    tracer above that and on the CPU (JAX's `InverseRenderer`)."""
+    rule = TG.fitter_backend
+    assert rule("cuda", 9) == "pallas"
+    assert rule("cuda", 64) == "pallas"
+    assert rule("cuda", 65) == "xla"
+    assert rule("cuda", 783) == "xla"
+    assert rule("cpu", 9) == "xla"
+    assert rule("cuda", 783, "pallas") == "pallas"
+    assert rule("cpu", 9, "pallas") == "pallas"
+    with pytest.raises(NotImplementedError, match="mxu"):
+        rule("cuda", 9, "mxu")
+
+
+def test_radiance_route_takes_any_sphere_count_on_the_plain_backend():
+    """`render_radiance_lanes`' tracer: "xla" is the plain tracer at any
+    sphere count on any device (it no longer raises above 64 spheres on
+    the card); the kernels take the adjoint up to 64 spheres and the fact
+    kernel with the re-walk above."""
+    route = TG.radiance_route
+    for dev in ("cuda", "cpu"):
+        for s in (9, 64, 65, 783, 5000):
+            assert route(dev, s, "xla") == "plain"
+    assert route("cuda", 783, "auto") == "bounce"
+    assert route("cuda", 65, "pallas") == "bounce"
+    assert route("cuda", 64, "auto") == "adjoint"
+    assert route("cpu", 783, "auto") == "plain"
+    assert route("cpu", 783, "pallas") == "bounce"

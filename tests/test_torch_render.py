@@ -147,7 +147,7 @@ def test_port_and_smoke_script_never_import_jax():
         "import gpu_bidirectional_raytracer_tpu_torch as p\n"
         "from gpu_bidirectional_raytracer_tpu_torch import convert, camera\n"
         "from gpu_bidirectional_raytracer_tpu_torch.ops import _build, "
-        "pallas_grad, pallas_trace\n"
+        "pallas_bounce, pallas_bounce_grad, pallas_grad, pallas_trace\n"
         "from gpu_bidirectional_raytracer_tpu_torch.diff import gradients\n"
         "from gpu_bidirectional_raytracer_tpu_torch.render import film, "
         "progressive\n"
@@ -196,3 +196,26 @@ def test_wrapper_refuses_cuda_without_kernel_route(monkeypatch):
     cam = ttypes.Camera.make(o, t, W, H, device="cpu")
     with pytest.raises(ValueError, match="CUDA device"):
         tops.trace_pallas_camera(meta, cfg, (8,), cam, W, H, (1, 2), 0)
+
+
+@pytest.mark.parametrize("rng_impl", [None, "threefry"])
+def test_direct_only_and_threefry_renders_match_jax(rng_impl):
+    """`Renderer(rng_impl=...)` and `step(direct_only=True)` against the
+    JAX renderer with the same options: two direct-only passes (on the
+    CPU both take the plain banded program), then two full passes."""
+    o, t, js = jparser.load_scene(scn("cornell.scn"))
+    _, _, ts = tparser.load_scene(scn("cornell.scn"), device="cpu")
+    jr = jprog.Renderer(js, o, t, W, H, seed=3, backend="xla",
+                        rng_impl=rng_impl)
+    tr = tprog.Renderer(ts, o, t, W, H, seed=3, device="cpu",
+                        rng_impl=rng_impl)
+    assert tr.state.key == tuple(
+        int(w) for w in np.asarray(jax.random.key_data(jr.state.key)))
+    for direct_only in (True, False):
+        ref = jr.render(2, direct_only=direct_only)
+        got = tr.render(2, direct_only=direct_only)
+        assert_protocol(got.reshape(-1, 3), np.asarray(ref).reshape(-1, 3))
+    assert tr.state.sample == 4
+    tr.reset()
+    assert tr.state.key == tprog.init_state(W, H, tr.cfg, 3, "cpu",
+                                            rng_impl).key

@@ -1,6 +1,7 @@
-"""The port's mix32 tape equals the JAX package's bit for bit: the frozen
+"""The port's tapes equal the JAX package's bit for bit: the frozen mix32
 contract vectors of tests/test_core.py::TestMix32Contract, and whole
-`site_uniforms` tapes over sites, depths and lane windows."""
+`site_uniforms` tapes over sites, depths and lane windows, for mix32 and
+for the partitionable threefry of ``jax.random`` (``impl="threefry"``)."""
 
 import jax
 import jax.numpy as jnp
@@ -111,3 +112,81 @@ class TestTapesBitwise:
             bits = trng._mix32(((row * total + lanes) & trng.MASK32) ^ k0,
                                k1)
             assert torch.equal(trng.bits_to_uniform(bits), ref[row])
+
+
+class TestThreefry:
+    @pytest.mark.parametrize("seed", [0, 1, 42, -3, 123456789])
+    def test_keys_fold_in_and_stream_key(self, seed):
+        jk = jrng.make_key(seed, "threefry")
+        tk = trng.make_key(seed, "threefry")
+        assert trng.key_impl(tk) == "threefry"
+        assert tk == _jax_words(jk) == _jax_words(jax.random.key(seed))
+        for data in (0, 7, 0x5EED, 2**32 - 1):
+            got = trng.fold_in(tk, data)
+            assert trng.key_impl(got) == "threefry"
+            assert got == _jax_words(jax.random.fold_in(jk, data))
+        assert trng.stream_key(tk, 3, 2, trng.DIFF_UV) == _jax_words(
+            jrng.stream_key(jk, 3, 2, jrng.DIFF_UV))
+
+    @pytest.mark.parametrize("seed,sample,depth,purpose,k,n", [
+        (0, 0, 0, jrng.CAM_JITTER, 2, 257),
+        (5, 3, 1, jrng.LIGHT_UV, 4, 64),
+        (123456789, 29999, 6, jrng.REFR_RR, 1, 333),
+    ])
+    def test_site_uniforms(self, seed, sample, depth, purpose, k, n):
+        ref = np.asarray(jrng.site_uniforms(jrng.make_key(seed, "threefry"),
+                                            sample, depth, purpose, k, n))
+        got = trng.site_uniforms(trng.make_key(seed, "threefry"), sample,
+                                 depth, purpose, k, n, device="cpu").numpy()
+        assert got.dtype == np.float32
+        assert np.array_equal(got, ref)
+
+    @pytest.mark.parametrize("offset,n,total", [(0, 16, 64), (8, 16, 64),
+                                                (100, 77, 4096)])
+    def test_lane_windows(self, offset, n, total):
+        jk, tk = jrng.make_key(9, "threefry"), trng.make_key(9, "threefry")
+        ref = np.asarray(jrng.site_uniforms(
+            jk, 2, 3, jrng.LIGHT_SCATTER, 3, n, lane_offset=offset,
+            lane_total=total))
+        got = trng.site_uniforms(tk, 2, 3, trng.LIGHT_SCATTER, 3, n,
+                                 device="cpu", lane_offset=offset,
+                                 lane_total=total).numpy()
+        assert np.array_equal(got, ref)
+
+    def test_lane_ids_and_bits(self):
+        ids = np.array([5, 3, 60, 0, 63], np.int32)
+        jk, tk = jrng.make_key(5, "threefry"), trng.make_key(5, "threefry")
+        ref = np.asarray(jrng.site_uniforms(
+            jk, 3, 1, jrng.LIGHT_UV, 2, 5, lane_ids=jnp.asarray(ids),
+            lane_total=64))
+        got = trng.site_uniforms(tk, 3, 1, trng.LIGHT_UV, 2, 5,
+                                 device="cpu", lane_ids=torch.as_tensor(ids),
+                                 lane_total=64).numpy()
+        assert np.array_equal(got, ref)
+        bits = trng.random_bits(tk, torch.arange(300, dtype=torch.int64))
+        want = np.asarray(jax.random.bits(jk, (300,), jnp.uint32))
+        assert np.array_equal(bits.numpy().astype(np.uint32), want)
+
+    def test_rbg_is_not_ported(self):
+        with pytest.raises(NotImplementedError, match="rbg"):
+            trng.make_key(0, "rbg")
+        with pytest.raises(ValueError):
+            trng.make_key(0, "philox")
+        assert trng.key_impl(trng.make_key(0)) == "mix32"
+
+    @pytest.mark.parametrize("impl", ["mix32", "threefry"])
+    def test_rows_uniforms_are_site_uniforms(self, impl):
+        """The rows the streamed tape is made of, all sites in one pass,
+        equal `site_uniforms` row by row, in a window and whole."""
+        key = trng.make_key(21, impl)
+        sites = [(4, 0, trng.LIGHT_UV, [2, 0, 3]), (4, 1, trng.DIFF_UV, [1]),
+                 (5, 2, trng.REFR_RR, [0])]
+        rows = [r for s, d, p, b in sites
+                for r in trng.site_key_rows(key, s, d, p, b)]
+        for lo, total in ((None, None), (30, 200)):
+            got = trng.rows_uniforms(impl, rows, 50, device="cpu",
+                                     lane_offset=lo, lane_total=total)
+            want = torch.cat([trng.site_uniforms(
+                key, s, d, p, max(b) + 1, 50, device="cpu", lane_offset=lo,
+                lane_total=total)[b] for s, d, p, b in sites])
+            assert torch.equal(got, want)

@@ -75,3 +75,47 @@ def torch_rays(rays):
 
     return Rays(o=torch.tensor(np.asarray(rays.o)),
                 d=torch.tensor(np.asarray(rays.d)))
+
+
+def many_sphere_scene(k=80, seed=3):
+    """The Cornell box and ``k`` small diffuse spheres placed from a numpy
+    seed (JAX's type): past the 64 spheres of the adjoint kernels, as
+    tests/test_bounce_grad.py builds one."""
+    import jax.numpy as jnp
+
+    from gpu_bidirectional_raytracer_tpu.core.types import Scene
+    from gpu_bidirectional_raytracer_tpu.scene import builtin
+
+    base = builtin.cornell_box()
+    pos = (np.random.default_rng(seed).uniform(0.0, 1.0, (k, 3))
+           * 60.0 + np.array([20.0, 5.0, 20.0])).astype(np.float32)
+    return Scene(
+        rad=jnp.concatenate([base.rad, jnp.full((k,), 2.0)]),
+        p=jnp.concatenate([base.p, jnp.asarray(pos)]),
+        e=jnp.concatenate([base.e, jnp.zeros((k, 3))]),
+        c=jnp.concatenate([base.c, jnp.full((k, 3), 0.5)]),
+        refl=jnp.concatenate([base.refl, jnp.zeros((k,), jnp.int32)]))
+
+
+def floating_vpl(cfg):
+    """One valid VPL floating in the Cornell box (JAX's type), as
+    tests/test_pallas.py uses: clear of the walls' knife edges."""
+    import jax.numpy as jnp
+
+    from gpu_bidirectional_raytracer_tpu.core.types import VplBuffer
+
+    v = VplBuffer.zeros(cfg.vpl_depth, cfg.light_points)
+    return VplBuffer(
+        hp=v.hp.at[0, 0].set(jnp.array([60.0, 50.0, 90.0])),
+        rad=v.rad.at[0, 0].set(jnp.array([2.0, 1.5, 1.0])),
+        nl=v.nl.at[0, 0].set(jnp.array([0.0, -1.0, 0.0])),
+        valid=v.valid.at[0, 0].set(True), sid=v.sid)
+
+
+def max_rel(a, b):
+    """tests/test_pallas_grad.py::_max_rel: the largest relative
+    difference over the entries above 1e-3 of the largest."""
+    big = np.abs(a) > 1e-3 * max(np.abs(a).max(), 1e-9)
+    if not big.any():
+        return 0.0
+    return float((np.abs(a - b) / np.maximum(np.abs(a), 1e-6))[big].max())

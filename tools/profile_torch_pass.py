@@ -1,12 +1,16 @@
 """Where a progressive pass or a training step of the PyTorch port spends
 its time on the card.
 
-    python3 tools/profile_torch_pass.py [--size 512] [--passes 20] [--train]
+    python3 tools/profile_torch_pass.py [--scene cornell|complex]
+        [--size 512] [--height H] [--passes 20] [--train]
 
-Without ``--train``: renders the Cornell box with the port's `Renderer`
-on the card. With ``--train``: runs the training step the JAX package's
-bench times, `render_loss_grad` (fused l2, spp 1, ``IntegratorConfig()``)
-against a black target, on a fresh mix32 key each step. Either way it
+Without ``--train``: renders the scene (``assets/scenes/<scene>.scn``)
+with the port's `Renderer` on the card. With ``--train``: runs the
+training step the JAX package's bench times, `render_loss_grad` (l2, spp
+1, ``IntegratorConfig()``, the default backend) against a black target,
+on a fresh mix32 key each step: the fused kernel on cornell.scn, the fact
+kernel and the re-walk on complex.scn (783 spheres; the JAX bench runs it
+at ``--size 512 --height 384``). Either way it
 warms up, times ``--passes`` passes or steps with CUDA events, then traces
 as many again with ``torch.profiler`` (CPU and CUDA activities) and prints
 one JSON line: the time per pass without and with the profiler, the
@@ -29,15 +33,15 @@ import torch
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
-def _passes(scene, orig, target, size):
+def _passes(scene, orig, target, width, height):
     """``run(k)``: k progressive passes of the `Renderer`."""
     from gpu_bidirectional_raytracer_tpu_torch.render.progressive import Renderer
 
-    r = Renderer(scene, orig, target, size, size)
+    r = Renderer(scene, orig, target, width, height)
     return r.render
 
 
-def _train_steps(scene, orig, target, size):
+def _train_steps(scene, orig, target, width, height):
     """``run(k)``: k fused training steps of `render_loss_grad`, each on a
     fresh key, against a black target (the JAX bench's step)."""
     from gpu_bidirectional_raytracer_tpu_torch import rng
@@ -53,23 +57,27 @@ def _train_steps(scene, orig, target, size):
     )
 
     cfg = IntegratorConfig()
-    cam = Camera.make(orig, target, size, size)
+    cam = Camera.make(orig, target, width, height)
     li = static_light_indices(scene)
     key = rng.make_key(0)
-    black = torch.zeros((size, size, 3), device=scene.device)
+    black = torch.zeros((height, width, 3), device=scene.device)
     count = [0]
 
     def run(k):
         for _ in range(k):
             count[0] += 1
             render_loss_grad(scene, cam, rng.fold_in(key, count[0]), black,
-                             cfg, size, size, li, spp=1, loss="l2")
+                             cfg, width, height, li, spp=1, loss="l2")
     return run
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--size", type=int, default=512)
+    ap.add_argument("--scene", choices=("cornell", "complex"),
+                    default="cornell")
+    ap.add_argument("--size", type=int, default=512, help="width")
+    ap.add_argument("--height", type=int, default=None,
+                    help="height (default: the width)")
     ap.add_argument("--passes", type=int, default=20)
     ap.add_argument("--train", action="store_true",
                     help="profile the fused training step, not a pass")
@@ -81,9 +89,10 @@ def main() -> int:
     from gpu_bidirectional_raytracer_tpu_torch.scene.parser import load_scene
 
     orig, target, scene = load_scene(
-        os.path.join(REPO, "assets", "scenes", "cornell.scn"))
+        os.path.join(REPO, "assets", "scenes", f"{args.scene}.scn"))
+    height = args.height or args.size
     run = (_train_steps if args.train else _passes)(scene, orig, target,
-                                                    args.size)
+                                                    args.size, height)
     run(6)
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
@@ -113,7 +122,8 @@ def main() -> int:
     print(json.dumps({
         "device": torch.cuda.get_device_name(0),
         "what": "train_step" if args.train else "render_pass",
-        "size": args.size, "passes": args.passes,
+        "scene": args.scene, "width": args.size, "height": height,
+        "passes": args.passes,
         "ms_per_pass": ms_per_pass,
         "profiled_wall_ms_per_pass": wall_ms,
         "device_ms_per_pass": device_ms if events else "not measured",
