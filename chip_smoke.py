@@ -4,13 +4,15 @@
 
 Drives the port's main paths: the progressive Cornell render at 512x512
 through the hand-written CUDA eye-path kernel; the training step and the
-inverse fitter through its hand-written adjoint kernels; and the
-many-sphere route on complex.scn (783 spheres) at 512x384, the render
-through the per-depth bounce kernel and the training step through the fact
-kernel and the re-walk. It holds every kernel against its plain PyTorch
-version and prints one line per phase, each with the seconds since the
-start. The launch counts a phase reads are set to 0 just before it drives
-its path.
+inverse fitter through its hand-written adjoint kernels; the many-sphere
+route on complex.scn (783 spheres) at 512x384, the render through the
+per-depth bounce kernel and the training step through the fact kernel and
+the re-walk; and the per-bounce scan route there, the tracer's sphere
+scans through the nearest-hit and any-hit kernels, and the training step
+with the scans in matmul form. It holds every kernel against its plain
+PyTorch version and prints one line per phase, each with the seconds since
+the start. The launch counts a phase reads are set to 0 just before it
+drives its path.
 
 1. ``device``: the card, and ``nvidia-smi``'s name and power limit;
 2. ``build``: nvcc builds every kernel source into ``build/kernels/``,
@@ -47,13 +49,22 @@ its path.
    at most 3.5%); on complex.scn the re-walk's gradients from the
    kernel's facts against autograd of the plain tracer, under 4's
    gradient protocol;
-7. ``main_path``: ``Renderer(cornell.scn, 512x512, IntegratorConfig(),
+7. ``scan_vs_plain``: at 64x48, depth 7, on complex.scn (mix32 and
+   threefry keys) and on cornell.scn, with VPLs: every scan of a plain
+   trace of the scan route, with the dead lanes and dead warps of its
+   depths, through ``nearest_kernel`` and ``anyhit_kernel`` (both modes)
+   and their plain versions, equal bit for bit on every lane and on a
+   ragged prefix; two launches with the same bits; the whole trace
+   through the kernels against the full-scan plain tracer under the
+   protocol, and equal to the plain route bit for bit; compaction equal
+   bit for bit;
+8. ``main_path``: ``Renderer(cornell.scn, 512x512, IntegratorConfig(),
    seed=0)`` for 32 passes (one ``trace_kernel`` launch per pass); image
    checks (finite, mean > 0, left wall red, right wall blue); the same
    passes through the plain version on the card under the protocol; ms
    per pass with CUDA events after a warm-up; the PPM written to a
    temporary directory;
-8. ``train_path``: at 512x512 on cornell.scn with ``IntegratorConfig()``:
+9. ``train_path``: at 512x512 on cornell.scn with ``IntegratorConfig()``:
    (a) the bench's training step, ``render_loss_grad(spp=1, loss="l2",
    backend="auto")`` against a black target on mix32 keys, 20 steps (one
    ``fused_kernel`` launch per step, nothing else), ms per step, its
@@ -63,21 +74,38 @@ its path.
    and four ``grad_kernel`` launches per step; the loss falls), then one
    step with every default (``l2_unbiased``, spp 4: eight of each); the
    first step of each fitter against its plain autograd route at 512x512;
-9. ``complex_path``: ``Renderer(complex.scn, 512x384, IntegratorConfig(),
+10. ``complex_path``: ``Renderer(complex.scn, 512x384, IntegratorConfig(),
    backend="auto")`` for 8 passes: 7 ``bounce_kernel`` launches per pass
    and nothing else; image checks; the same 8 passes in 96-row bands
    (``tile_rows=96``) equal to the untiled ones bit for bit; one pass
    against one pass of the plain banded program (``backend="xla"``) under
    the protocol; ms per pass with CUDA events;
-10. ``complex_train``: ``render_loss_grad(backend="pallas")`` on
+11. ``complex_train``: ``render_loss_grad(backend="pallas")`` on
    complex.scn at 512x384, l2 against black, spp 1, 3 steps: 7
    ``aux_kernel`` launches per step and nothing else; ms per step, peak
    GiB; the step against ``backend="xla"`` (plain full-scan autograd) at
    128x96, and at 512x384 the re-walk from the kernel's facts against the
    re-walk from the plain collector's, under 4's gradient protocol;
-11. ``kernels``: one JSON line with a row per kernel (five): launches on
+12. ``scan_path``: `path_tracer.trace(scan_backend="pallas")` on
+   complex.scn at 512x384 with ``IntegratorConfig()``, 8 samples as
+   tools/bench_complex.py makes them, without and with ``scan_compact``:
+   7 ``nearest_kernel`` and 14 ``anyhit_kernel`` launches a sample and
+   nothing else; ms per sample, and the bounce route's on the same
+   samples; image checks; compaction equal bit for bit; sample 0 against
+   the bounce route and the plain tracer under the protocol; the
+   ``scan_backend="mxu"`` forward against ``"xla"`` under
+   tests/test_mxu.py's bounds (mean within 2%, under 5% of pixels off);
+13. ``mxu_train``: ``render_loss_grad(backend="mxu")`` on complex.scn at
+   512x384, l2 against black, spp 1, 2 steps, ms per step and peak GiB,
+   and the same with ``backend="xla"``; at 128x96 the two against each
+   other under tests/test_mxu.py's bounds (loss within 2e-2, gradient
+   cosines above 0.98) on that file's 80-sphere scene, and on complex.scn
+   for the loss and the e and c gradients;
+14. ``kernels``: one JSON line with a row per kernel (seven): launches on
    its path, ms per launch, the plain version's ms, and the bound; the
-   bounce kernel's row also times 128, 256 and 512 threads per block.
+   bounce kernel's row also times 128, 256 and 512 threads per block, the
+   scan kernels' rows give each depth's time, without and with
+   compaction.
 
 The last line is ``{"ok": true, "device": {...}}``. Any failed check exits
 non-zero before it. Without a card, or without the package beside it, the
@@ -138,6 +166,14 @@ COMPLEX_W, COMPLEX_H, COMPLEX_PASSES, COMPLEX_TILE = 512, 384, 8, 96
 COMPLEX_STEPS = 3
 COMPLEX_GRAD_W, COMPLEX_GRAD_H = 128, 96
 BOUNCE_BLOCKS = (128, 256, 512)
+# The per-bounce scan route on complex.scn at 512x384 (tools/
+# bench_complex.py), and the matmul form's training step there.
+SCAN_SAMPLES, MXU_STEPS = 8, 2
+# tests/test_mxu.py's bounds for the matmul form against the direct one:
+# the forward's mean within 2% and at most 5% of its pixels off (isclose,
+# rtol 1e-3, atol 1e-4); the step's loss within 2e-2 and each gradient's
+# cosine above 0.98.
+MXU_ENERGY, MXU_FLIPS, MXU_LOSS_RTOL, MXU_COS = 0.02, 0.05, 2e-2, 0.98
 # The comparisons of the training path with its plain autograd routes:
 # the fused step's two, then the unfused (grad_kernel) steps' two.
 TRAIN_COMPARED = ("step", "loss_grad_plain", "fit_step_l2_spp4",
@@ -876,7 +912,7 @@ def phase_bounce_vs_plain(device) -> dict:
         ref = path_tracer.trace(scene, cfg, li, rays, key, 0, **kw)
         (hit_k, ol_k, ov_k), rad_k = pbg.trace_bounce_aux(
             scene, cfg, li, rays, key, 0, **kw)
-        rad_p, (hit_p, ol_p, ov_p) = path_tracer.trace(
+        rad_p, (hit_p, ol_p, ov_p, *_) = path_tracer.trace(
             scene, cfg, li, rays, key, 0, collect_aux=True, **kw)
         torch.cuda.synchronize()
 
@@ -1144,6 +1180,490 @@ def phase_complex_train() -> dict:
             "rays": rays, "vpls": vpls}
 
 
+def _record_scans(fn, plain: bool):
+    """``(fn(), calls)``: the inputs of every scan-kernel wrapper call
+    that ``fn`` makes, each ``(kind, args, vacuum)``, cloned. The scans
+    themselves run through the plain versions (``plain``) or the
+    kernels."""
+    from gpu_bidirectional_raytracer_tpu_torch.ops import pallas_scan as ps
+
+    calls = []
+    near, anyhit = ps.nearest_tiles, ps.anyhit_tiles
+
+    def record_near(scene, o, d, alive):
+        calls.append(("nearest", (o.clone(), d.clone(), alive.clone()),
+                      False))
+        return (ps.nearest_plain if plain else near)(scene, o, d, alive)
+
+    def record_anyhit(scene, o, d, maxt, active, vacuum=False):
+        calls.append(("anyhit", (o.clone(), d.clone(), maxt.clone(),
+                                 active.clone()), vacuum))
+        return (ps.anyhit_plain if plain else anyhit)(scene, o, d, maxt,
+                                                      active, vacuum)
+
+    ps.nearest_tiles, ps.anyhit_tiles = record_near, record_anyhit
+    try:
+        out = fn()
+    finally:
+        ps.nearest_tiles, ps.anyhit_tiles = near, anyhit
+    return out, calls
+
+
+def _scan_pair(scene, kind: str, args: tuple, vacuum: bool,
+               lanes: int | None = None):
+    """A scan kernel's outputs and its plain version's on one recorded
+    call (on its first ``lanes`` lanes)."""
+    from gpu_bidirectional_raytracer_tpu_torch.ops import pallas_scan as ps
+
+    if lanes is not None:
+        args = tuple(a[:lanes] for a in args)
+    if kind == "nearest":
+        return ps.nearest_tiles(scene, *args), ps.nearest_plain(scene, *args)
+    return ((ps.anyhit_tiles(scene, *args, vacuum=vacuum),),
+            (ps.anyhit_plain(scene, *args, vacuum),))
+
+
+def _same_bits(got, want) -> tuple[bool, float]:
+    """Whether every output is equal bit for bit, and the largest
+    |difference| over them."""
+    same = all(torch.equal(a, b) for a, b in zip(got, want))
+    err = max(float((a.double() - b.double()).abs().max()) if a.numel()
+              else 0.0 for a, b in zip(got, want))
+    return same, err
+
+
+def phase_scan_vs_plain(device) -> dict:
+    """The scan kernels against their plain versions at 64x48, depth 7:
+    complex.scn (mix32 and threefry keys) and cornell.scn, with VPLs.
+    Every scan of a plain trace of the scan route, with the live, dead
+    and skipped lanes each depth leaves, goes to the kernel and the plain
+    version (all lanes, and a ragged prefix); two launches on the same
+    inputs; the whole trace through the kernels against the full-scan
+    plain tracer; compaction against none."""
+    from gpu_bidirectional_raytracer_tpu_torch import rng
+    from gpu_bidirectional_raytracer_tpu_torch.core.types import (
+        Camera,
+        IntegratorConfig,
+    )
+    from gpu_bidirectional_raytracer_tpu_torch.integrators import (
+        light_tracer,
+        path_tracer,
+    )
+    from gpu_bidirectional_raytracer_tpu_torch.integrators.direct import (
+        static_light_indices,
+    )
+    from gpu_bidirectional_raytracer_tpu_torch.render import progressive
+
+    w, h = SMOKE_W, SMOKE_H
+    cases = {"complex": (COMPLEX, None), "complex_threefry": (COMPLEX,
+                                                              "threefry"),
+             "cornell": (SCENE, None)}
+    results, errs = {}, {"nearest": 0.0, "anyhit": 0.0}
+    for name, (path, impl) in cases.items():
+        orig, target, scene = _scene_at(path, device)
+        cam = Camera.make(orig, target, w, h, device=device)
+        li = static_light_indices(scene)
+        cfg = IntegratorConfig()
+        key = rng.make_key(0, impl)
+        kw = dict(vpls=light_tracer.trace_light_paths(scene, cfg, li, key, 0),
+                  vlp_index=0)
+        rays = progressive.frame_rays(cam, cfg, w, h, key, 0)
+
+        def trace(**more):
+            return path_tracer.trace(scene, cfg, li, rays, key, 0, **kw,
+                                     **more)
+
+        plain_route, calls = _record_scans(
+            lambda: trace(scan_backend="pallas"), plain=True)
+        per_call = []
+        for kind, args, vacuum in calls:
+            full = _same_bits(*_scan_pair(scene, kind, args, vacuum))
+            ragged = _same_bits(*_scan_pair(scene, kind, args, vacuum,
+                                            args[0].shape[0] - 13))
+            per_call.append({
+                "kind": kind + ("_vacuum" if vacuum else ""),
+                "lanes": args[0].shape[0],
+                "live_frac": float(args[-1].float().mean()),
+                "same_bits": full[0] and ragged[0],
+                "max_abs_err": max(full[1], ragged[1])})
+            errs[kind] = max(errs[kind], full[1], ragged[1])
+        twice = {}
+        for kind, args, vacuum in calls[3:6]:      # depth 1: mixed lanes
+            a = _scan_pair(scene, kind, args, vacuum)[0]
+            b = _scan_pair(scene, kind, args, vacuum)[0]
+            twice[kind + ("_vacuum" if vacuum else "")] = _same_bits(a, b)[0]
+        got = trace(scan_backend="pallas")
+        compact = trace(scan_backend="pallas", scan_compact=True)
+        ref = trace()
+        torch.cuda.synchronize()
+        results[name] = {
+            "scene_spheres": scene.num_spheres, "key": impl or "mix32",
+            "scan_calls": len(calls), "calls": per_call,
+            "two_launches_same_bits": twice,
+            "vs_plain": protocol(got, ref),
+            "kernel_route_equals_plain_route": bool(torch.equal(
+                got, plain_route)),
+            "compact_same_bits": bool(torch.equal(got, compact))}
+    phase("scan_vs_plain", width=w, height=h, max_depth=7, results=results)
+    for name, r in results.items():
+        check(r["scan_calls"] == 21, f"scan_vs_plain {name}: "
+                                     f"{r['scan_calls']} scans, not 21")
+        bad = [c for c in r["calls"] if not c["same_bits"]]
+        check(not bad, f"scan_vs_plain {name}: kernel and plain differ {bad}")
+        check(all(r["two_launches_same_bits"].values()),
+              f"scan_vs_plain {name}: two launches differ")
+        check(r["vs_plain"]["finite"]
+              and r["vs_plain"]["bad_frac"] <= MAX_BAD_FRAC,
+              f"scan_vs_plain {name}: {r['vs_plain']}")
+        check(r["kernel_route_equals_plain_route"],
+              f"scan_vs_plain {name}: the kernels' trace differs from the "
+              f"plain route's")
+        check(r["compact_same_bits"],
+              f"scan_vs_plain {name}: compaction changed the radiance")
+        for kind in errs:
+            errs[kind] = max(errs[kind], r["vs_plain"]["max_abs_err"])
+    return errs
+
+
+def _scan_rig():
+    """complex.scn at 512x384 as tools/bench_complex.py runs it:
+    ``(scene, cfg, li, key, inputs)``, ``inputs(s)`` the rays and VPLs of
+    sample ``s`` (jittered camera rays; the light subpaths of the
+    sample)."""
+    from gpu_bidirectional_raytracer_tpu_torch import camera as cam_mod
+    from gpu_bidirectional_raytracer_tpu_torch import rng
+    from gpu_bidirectional_raytracer_tpu_torch.core.types import (
+        Camera,
+        IntegratorConfig,
+    )
+    from gpu_bidirectional_raytracer_tpu_torch.integrators import light_tracer
+    from gpu_bidirectional_raytracer_tpu_torch.integrators.direct import (
+        static_light_indices,
+    )
+
+    orig, target, scene = _scene_at(COMPLEX)
+    cfg = IntegratorConfig()
+    w, h, n = COMPLEX_W, COMPLEX_H, COMPLEX_W * COMPLEX_H
+    cam = Camera.make(orig, target, w, h, device=scene.device)
+    li = static_light_indices(scene)
+    key = rng.make_key(0)
+    px, py = cam_mod.pixel_grid(w, h, device=scene.device)
+
+    def inputs(s):
+        u = rng.site_uniforms(key, s, 0, rng.CAM_JITTER, 2, n,
+                              device=scene.device)
+        return (cam_mod.primary_rays(cam, w, h, u[0], u[1], px, py),
+                light_tracer.trace_light_paths(scene, cfg, li, key, s))
+
+    return scene, cfg, li, key, inputs
+
+
+def phase_scan_path() -> dict:
+    """The per-bounce scan route at complex.scn 512x384 with
+    ``IntegratorConfig()``: `path_tracer.trace(scan_backend="pallas")`,
+    ``SCAN_SAMPLES`` samples without and with compaction (7
+    ``nearest_kernel`` and 14 ``anyhit_kernel`` launches a sample and
+    nothing else), ms per sample; sample 0 against the bounce route and
+    the plain tracer, and the matmul form against the direct one."""
+    from gpu_bidirectional_raytracer_tpu_torch.integrators import (
+        light_tracer,
+        path_tracer,
+    )
+    from gpu_bidirectional_raytracer_tpu_torch.ops import pallas_bounce as pb
+    from gpu_bidirectional_raytracer_tpu_torch.ops import pallas_trace as ops
+
+    scene, cfg, li, key, inputs = _scan_rig()
+    n = COMPLEX_W * COMPLEX_H
+
+    def render(tracer, **kw):
+        acc = torch.zeros((n, 3), dtype=torch.float32, device=scene.device)
+        for s in range(SCAN_SAMPLES):
+            rays, vpls = inputs(s)
+            acc = acc + tracer(scene, cfg, li, rays, key, s, vpls=vpls,
+                               vlp_index=0, **kw)
+        return acc / SCAN_SAMPLES
+
+    def timed(tracer, **kw):
+        torch.cuda.synchronize()
+        ops.reset_launches()
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        start.record()
+        img = render(tracer, **kw)
+        stop.record()
+        torch.cuda.synchronize()
+        return (img, start.elapsed_time(stop) / SCAN_SAMPLES,
+                dict(ops.LAUNCHES))
+
+    rays, vpls = inputs(0)
+    kw0 = dict(vpls=vpls, vlp_index=0)
+    path_tracer.trace(scene, cfg, li, rays, key, 0, scan_backend="pallas",
+                      **kw0)                                    # warm-up
+    runs = {c: timed(path_tracer.trace, scan_backend="pallas",
+                     scan_compact=c) for c in (False, True)}
+    img, ms, launches = runs[False]
+    pb.trace_pallas_bounce(scene, cfg, li, rays, key, 0, **kw0)  # warm-up
+    _, ms_bounce, _ = timed(pb.trace_pallas_bounce)
+    per_sample = {"nearest_kernel": cfg.max_depth * SCAN_SAMPLES,
+                  "anyhit_kernel": 2 * cfg.max_depth * SCAN_SAMPLES}
+
+    # Sample 0 through the three routes that share its estimator and tape,
+    # and through the matmul form of the plain tracer.
+    scan0 = path_tracer.trace(scene, cfg, li, rays, key, 0,
+                              scan_backend="pallas", **kw0)
+    with torch.no_grad():
+        bounce0 = pb.trace_pallas_bounce(scene, cfg, li, rays, key, 0, **kw0)
+        plain0 = path_tracer.trace(scene, cfg, li, rays, key, 0, **kw0)
+        mxu0 = path_tracer.trace(scene, cfg, li, rays, key, 0,
+                                 scan_backend="mxu", **kw0)
+    torch.cuda.synchronize()
+    flips = float((~torch.isclose(mxu0, plain0, rtol=1e-3, atol=1e-4))
+                  .any(dim=-1).float().mean())
+    energy = abs(float(mxu0.mean()) - float(plain0.mean())) / float(
+        plain0.mean())
+    breakdown = {"light_pass": cuda_ms(
+        lambda: light_tracer.trace_light_paths(scene, cfg, li, key, 0),
+        reps=5)}
+    nonzero = float((img.amax(dim=-1) > 0).float().mean())
+    out = {"ms_per_sample": ms, "ms_per_sample_compact": runs[True][1],
+           "ms_per_sample_bounce_route": ms_bounce,
+           "launches": launches, "launches_compact": runs[True][2],
+           "mean": float(img.mean()), "nonzero_frac": nonzero,
+           "compact_same_bits": bool(torch.equal(runs[True][0], img)),
+           "sample0_vs_bounce": protocol(scan0, bounce0),
+           "sample0_vs_plain": protocol(scan0, plain0),
+           "mxu_vs_xla": {"energy_rel": energy, "flip_frac": flips}}
+    phase("scan_path", width=COMPLEX_W, height=COMPLEX_H,
+          spheres=scene.num_spheres, samples=SCAN_SAMPLES,
+          breakdown_ms=breakdown, **out)
+    for what in ("launches", "launches_compact"):
+        check(out[what] == counts(**per_sample),
+              f"scan path {what} {out[what]} in {SCAN_SAMPLES} samples")
+    check(bool(torch.isfinite(img).all()), "scan path: non-finite pixels")
+    check(out["mean"] > 0.0, "scan path: black image")
+    check(out["compact_same_bits"], "scan path: compaction changed the image")
+    for what in ("sample0_vs_bounce", "sample0_vs_plain"):
+        check(out[what]["finite"] and out[what]["bad_frac"] <= MAX_BAD_FRAC,
+              f"scan path {what}: {out[what]}")
+    check(energy <= MXU_ENERGY and flips < MXU_FLIPS,
+          f"scan path: mxu against xla {out['mxu_vs_xla']}")
+    return {**out, "max_abs_err": max(out["sample0_vs_bounce"]["max_abs_err"],
+                                      out["sample0_vs_plain"]["max_abs_err"]),
+            "scene": scene, "cfg": cfg, "li": li, "key": key,
+            "inputs0": (rays, vpls)}
+
+
+def _mxu_test_scene(device):
+    """tests/test_mxu.py's scene: 80 diffuse spheres placed from numpy
+    seed 42, the first an emitter; its camera looks from (0, 10, 120)."""
+    import numpy as np
+
+    from gpu_bidirectional_raytracer_tpu_torch.scene.parser import (
+        scene_from_arrays,
+    )
+
+    r = np.random.default_rng(42)
+    rad = r.uniform(1.0, 6.0, 80).astype(np.float32)
+    p = r.uniform(-40, 40, (80, 3)).astype(np.float32)
+    c = r.uniform(0.1, 0.9, (80, 3)).astype(np.float32)
+    e = np.zeros((80, 3), np.float32)
+    e[0], c[0] = 15.0, 0.0
+    return ((0.0, 10.0, 120.0), (0.0, 0.0, 0.0),
+            scene_from_arrays(rad, p, e, c, np.zeros(80, np.int32),
+                              device=device))
+
+
+def _cosines(ga, gb, params) -> dict:
+    return {k: float((getattr(ga, k) * getattr(gb, k)).sum()
+                     / (getattr(ga, k).norm() * getattr(gb, k).norm()))
+            for k in params}
+
+
+def phase_mxu_train() -> dict:
+    """`render_loss_grad(backend="mxu")` at complex.scn 512x384, l2
+    against black, spp 1: every sphere scan in matmul form, each depth
+    checkpointed. ``MXU_STEPS`` steps, ms per step and peak memory; the
+    same with ``backend="xla"`` (the direct form) on the same keys. At
+    128x96 the two against each other under tests/test_mxu.py's bounds,
+    on that file's 80-sphere scene (every bound) and on complex.scn (the
+    loss and the e and c gradients; there the p and rad gradients come
+    from a few grazing paths whose roots the two forms round apart, and
+    are reported)."""
+    from gpu_bidirectional_raytracer_tpu_torch import rng
+    from gpu_bidirectional_raytracer_tpu_torch.core.types import (
+        Camera,
+        IntegratorConfig,
+    )
+    from gpu_bidirectional_raytracer_tpu_torch.diff import gradients as G
+    from gpu_bidirectional_raytracer_tpu_torch.integrators.direct import (
+        static_light_indices,
+    )
+    from gpu_bidirectional_raytracer_tpu_torch.ops import pallas_trace as ops
+
+    scene, cfg, li, key, _ = _scan_rig()
+    dev = scene.device
+    orig, target, _ = _scene_at(COMPLEX, dev)
+    params = ("p", "rad", "e", "c")
+
+    def step(sc, cam_at, w, h, k, backend, config=cfg):
+        cam = Camera.make(*cam_at, w, h, device=dev)
+        black = torch.zeros((h, w, 3), dtype=torch.float32, device=dev)
+        return G.render_loss_grad(sc, cam, k, black, config, w, h,
+                                  static_light_indices(sc), spp=1,
+                                  loss="l2", backend=backend)
+
+    gw, gh = COMPLEX_GRAD_W, COMPLEX_GRAD_H
+    m_orig, m_target, m_scene = _mxu_test_scene(dev)
+    small = {}
+    for name, sc, cam_at, config in (
+            ("complex", scene, (orig, target), cfg),
+            ("test_mxu_80", m_scene, (m_orig, m_target),
+             IntegratorConfig.cpu_golden())):
+        (lm, gm), (lx, gx) = (step(sc, cam_at, gw, gh, key, b, config)
+                              for b in ("mxu", "xla"))
+        small[name] = {"loss_rel": abs(float(lm) - float(lx))
+                       / abs(float(lx)),
+                       "cosine": _cosines(gm, gx, params)}
+    steps = {}
+    for backend in ("mxu", "xla"):
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        ops.reset_launches()
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for i in range(MXU_STEPS):
+            loss_v, g = step(scene, (orig, target), COMPLEX_W, COMPLEX_H,
+                             rng.fold_in(key, 1 + i), backend)
+        stop.record()
+        torch.cuda.synchronize()
+        steps[backend] = {
+            "ms_per_step": start.elapsed_time(stop) / MXU_STEPS,
+            "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+            "loss": float(loss_v), "launches": dict(ops.LAUNCHES),
+            "finite": bool(torch.isfinite(loss_v)) and all(
+                bool(torch.isfinite(getattr(g, k)).all()) for k in params),
+            "grads": g}
+    full = _cosines(steps["mxu"].pop("grads"), steps["xla"].pop("grads"),
+                    params)
+    torch.cuda.empty_cache()
+    phase("mxu_train", width=COMPLEX_W, height=COMPLEX_H,
+          spheres=scene.num_spheres, steps=MXU_STEPS, **steps,
+          mxu_vs_xla_cosine_full_size=full,
+          **{f"mxu_vs_xla_{gw}x{gh}": small})
+    for backend, r in steps.items():
+        check(r["finite"], f"mxu_train {backend}: non-finite")
+        check(r["launches"] == counts(),
+              f"mxu_train {backend}: launched {r['launches']}")
+    for name, r in small.items():
+        gated = params if name == "test_mxu_80" else ("e", "c")
+        check(r["loss_rel"] <= MXU_LOSS_RTOL
+              and min(r["cosine"][k] for k in gated) > MXU_COS,
+              f"mxu_train: mxu against xla on {name} at {gw}x{gh} {r}")
+    return steps
+
+
+def _scan_rows(svp: dict, spath: dict) -> list:
+    """The rows of the two scan kernels at complex.scn's 512x384, sample
+    0 of the scan path: per launch, at each depth's real inputs, without
+    and with compaction. Their work is what the scans must do for live
+    lanes: S roots per extension segment, and the roots of each cast
+    shadow ray up to its first blocker (`path_tracer.trace` with_stats,
+    in bands of 96 rows); their bytes each input read once and each
+    output written once."""
+    from gpu_bidirectional_raytracer_tpu_torch.core.types import Rays
+    from gpu_bidirectional_raytracer_tpu_torch.integrators import path_tracer
+    from gpu_bidirectional_raytracer_tpu_torch.ops import pallas_scan as ps
+
+    scene, cfg, li, key = (spath["scene"], spath["cfg"], spath["li"],
+                           spath["key"])
+    rays, vpls = spath["inputs0"]
+    kw = dict(vpls=vpls, vlp_index=0)
+    n, depths = rays.o.shape[0], cfg.max_depth
+
+    def mean(xs):
+        return sum(xs) / len(xs)
+
+    calls, ms = {}, {}
+    for compact in (False, True):
+        _, calls[compact] = _record_scans(lambda: path_tracer.trace(
+            scene, cfg, li, rays, key, 0, scan_backend="pallas",
+            scan_compact=compact, **kw), plain=False)
+        ms[compact] = {"nearest": [], "anyhit": [], "anyhit_vacuum": []}
+        for kind, args, vacuum in calls[compact]:
+            launch = (ps.prepare_nearest(scene, *args) if kind == "nearest"
+                      else ps.prepare_anyhit(scene, *args, vacuum))
+            ms[compact][kind + ("_vacuum" if vacuum else "")].append(
+                cuda_ms(launch, reps=20))
+    live = {"nearest": [], "anyhit": [], "anyhit_vacuum": []}
+    plain_ms = {"nearest": [], "anyhit": []}
+    for kind, args, vacuum in calls[False]:
+        live[kind + ("_vacuum" if vacuum else "")].append(
+            float(args[-1].float().mean()))
+        plain_ms[kind].append(cuda_ms(
+            lambda: ps.nearest_plain(scene, *args) if kind == "nearest"
+            else ps.anyhit_plain(scene, *args, vacuum), reps=1, warmup=1))
+    stats = {}
+    band = COMPLEX_TILE * COMPLEX_W
+    for lo in range(0, n, band):
+        _, s_ = path_tracer.trace(
+            scene, cfg, li, Rays(o=rays.o[lo:lo + band],
+                                 d=rays.d[lo:lo + band]),
+            key, 0, lane_offset=lo, lane_total=n, with_stats=True, **kw)
+        stats = {k: stats.get(k, 0) + v for k, v in s_.items()}
+    s = scene.num_spheres
+    n_vpl = cfg.vpl_depth * cfg.max_vlp if cfg.use_vpl else 0
+    near_ops = stats["extension_segments"] * s * OPS_ROOT // depths
+    near_bytes = (25 + 48) * n
+    any_ops = stats["shadow_tests"] * OPS_ROOT // (2 * depths)
+    any_bytes = 30 * n * (len(li) + n_vpl) // 2
+    src = "gpu_bidirectional_raytracer_tpu_torch/csrc/scan_kernel.cu"
+    any_ms = {c: ms[c]["anyhit"] + ms[c]["anyhit_vacuum"] for c in ms}
+    return [{
+        "name": "nearest_kernel",
+        "route": "cuda",
+        "source": src,
+        "replaces": "gpu_bidirectional_raytracer_tpu/ops/pallas_scan.py:67",
+        "launches": spath["launches"]["nearest_kernel"],
+        "max_abs_err": max(svp["nearest"], spath["max_abs_err"]),
+        "ms": mean(ms[False]["nearest"]),
+        "plain_ms": mean(plain_ms["nearest"]),
+        **_bound(near_ops, near_bytes),
+        "library_ms": None,
+        "ms_per_depth": ms[False]["nearest"],
+        "ms_compacted": mean(ms[True]["nearest"]),
+        "ms_compacted_per_depth": ms[True]["nearest"],
+        "live_frac_per_depth": live["nearest"],
+        "work": {"extension_segments": stats["extension_segments"],
+                 "spheres": s, "fp32_ops_per_launch": near_ops,
+                 "bytes": near_bytes,
+                 "per_launch": "the mean of the 7 depths of a sample"},
+    }, {
+        "name": "anyhit_kernel",
+        "route": "cuda",
+        "source": src,
+        "replaces": "gpu_bidirectional_raytracer_tpu/ops/pallas_scan.py:109",
+        "launches": spath["launches"]["anyhit_kernel"],
+        "max_abs_err": max(svp["anyhit"], spath["max_abs_err"]),
+        "ms": mean(any_ms[False]),
+        "plain_ms": mean(plain_ms["anyhit"]),
+        **_bound(any_ops, any_bytes),
+        "library_ms": None,
+        "ms_per_depth": {"shadow": ms[False]["anyhit"],
+                         "vacuum": ms[False]["anyhit_vacuum"]},
+        "ms_compacted": mean(any_ms[True]),
+        "ms_compacted_per_depth": {"shadow": ms[True]["anyhit"],
+                                   "vacuum": ms[True]["anyhit_vacuum"]},
+        "active_frac_per_depth": {"shadow": live["anyhit"],
+                                  "vacuum": live["anyhit_vacuum"]},
+        "work": {"shadow_tests": stats["shadow_tests"],
+                 "shadow_rays": stats["shadow_rays"],
+                 "fp32_ops_per_launch": any_ops, "bytes": any_bytes,
+                 "per_launch": "the mean of the 14 launches of a sample"},
+    }]
+
+
 
 def _forward_ops(stats: dict, s: int) -> int:
     """FP32 operations of the eye-path work in ``stats`` (path_tracer.trace
@@ -1164,7 +1684,8 @@ def _bound(ops_total: int, bytes_total: int) -> dict:
 
 def phase_kernels(main: dict, train: dict, max_abs_err: float,
                   grad_err: float, device, tape_res: dict, bounce: dict,
-                  cpath: dict, ctrain: dict) -> None:
+                  cpath: dict, ctrain: dict, scan: dict,
+                  spath: dict) -> None:
     """Per-kernel line: times at the main paths' shapes and the bounds."""
     from gpu_bidirectional_raytracer_tpu_torch import camera as cam_mod
     from gpu_bidirectional_raytracer_tpu_torch import rng
@@ -1285,6 +1806,7 @@ def phase_kernels(main: dict, train: dict, max_abs_err: float,
         "work": {**work, "bytes": fused_bytes},
     }]
     rows += _bounce_rows(bounce, cpath, ctrain, device)
+    rows += _scan_rows(scan, spath)
     print(json.dumps({"kernels": rows}), flush=True)
 
 
@@ -1409,12 +1931,16 @@ def main() -> int:
         grad_err = phase_grad_vs_plain(device)
         tape_res = phase_tape_vs_plain(device)
         bounce_res = phase_bounce_vs_plain(device)
+        scan_res = phase_scan_vs_plain(device)
         main_res = phase_main_path()
         train_res = phase_train_path()
         cpath_res = phase_complex_path()
         ctrain_res = phase_complex_train()
+        spath_res = phase_scan_path()
+        phase_mxu_train()
         phase_kernels(main_res, train_res, max_err, grad_err, device,
-                      tape_res, bounce_res, cpath_res, ctrain_res)
+                      tape_res, bounce_res, cpath_res, ctrain_res, scan_res,
+                      spath_res)
     except SmokeFailure as err:
         print(f"chip_smoke: FAILED: {err}", file=sys.stderr, flush=True)
         return 1

@@ -14,7 +14,10 @@ gradient and `torch.where` routes it to the taken branch only.
 Backends: ``"auto"`` takes the CUDA kernels for a scene on the card and
 the plain torch tracer on the CPU; ``"pallas"`` the kernels (whose
 wrappers run the plain versions on CPU tensors); ``"xla"`` the plain torch
-tracer on any device and at any sphere count; ``"mxu"`` is not ported.
+tracer on any device and at any sphere count; ``"mxu"`` the same tracer
+with every sphere scan in its matmul form (`intersect.sphere_distances`).
+The plain tracer checkpoints each depth (``remat=True``), as JAX's does,
+so the backward keeps no depth's ``[N, S]`` scans alive.
 With the kernels, a scene of at most 64 spheres takes the adjoint kernels
 (`ops.pallas_grad`) and a larger one the fact kernel and the re-walk
 (`ops.pallas_bounce_grad.trace_bounce_diff`), as in the JAX package.
@@ -23,6 +26,7 @@ With the kernels, a scene of at most 64 spheres takes the adjoint kernels
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Callable
 
 import numpy as np
@@ -52,15 +56,12 @@ from gpu_bidirectional_raytracer_tpu_torch.ops.pallas_grad import (  # noqa: F40
     log_loss,
 )
 
-_BACKENDS = ("auto", "pallas", "xla")
+_BACKENDS = ("auto", "pallas", "xla", "mxu")
 
 
 def _resolve_backend(device_type: str, backend: str) -> str:
     """``"auto"``: the kernels (``"pallas"``) on the card, the plain
     tracer (``"xla"``) on the CPU."""
-    if backend == "mxu":
-        raise NotImplementedError("backend 'mxu' (matmul sphere scans) is "
-                                  "not ported")
     if backend not in _BACKENDS:
         raise ValueError(f"unknown backend {backend!r}")
     if backend == "auto":
@@ -70,7 +71,8 @@ def _resolve_backend(device_type: str, backend: str) -> str:
 
 def radiance_route(device_type: str, num_spheres: int, backend: str) -> str:
     """The tracer of `render_radiance_lanes`: ``"plain"``
-    (`path_tracer.trace`, any sphere count), ``"adjoint"``
+    (`path_tracer.trace`, any sphere count; ``"xla"`` and ``"mxu"``),
+    ``"adjoint"``
     (`ops.pallas_grad.trace_pallas_diff`, at most 64 spheres) or
     ``"bounce"`` (`trace_bounce_diff`, more)."""
     if _resolve_backend(device_type, backend) != "pallas":
@@ -104,10 +106,12 @@ def render_radiance_lanes(scene: Scene, cam: Camera, key: rng.Key,
     fresh ``[0, max_vlp)`` block. With the kernels, more than 64 spheres
     take `trace_bounce_diff`."""
     pallas_grad.check_supported(cfg)
-    tracer = {"plain": path_tracer.trace,
+    route = radiance_route(scene.device.type, scene.num_spheres, backend)
+    tracer = {"plain": functools.partial(
+                  path_tracer.trace, remat=True,
+                  scan_backend="mxu" if backend == "mxu" else "xla"),
               "adjoint": pallas_grad.trace_pallas_diff,
-              "bounce": trace_bounce_diff}[radiance_route(
-                  scene.device.type, scene.num_spheres, backend)]
+              "bounce": trace_bounce_diff}[route]
     dev = scene.device
     if lane_count is None:
         lane_offset, lane_count, lane_total = None, width * height, None

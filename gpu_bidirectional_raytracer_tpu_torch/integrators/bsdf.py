@@ -34,9 +34,11 @@ def _safe_sqrt(x: Tensor) -> Tensor:
 
 def scatter(refl: Tensor, albedo: Tensor, d: Tensor, normal: Tensor,
             nl: Tensor, u_diff1: Tensor, u_diff2: Tensor,
-            u_rr: Tensor) -> Scatter:
+            u_rr: Tensor, with_bits: bool = False):
     """One material interaction per lane. ``normal`` is the geometric
-    normal, ``nl`` the one facing the incoming ray."""
+    normal, ``nl`` the one facing the incoming ray. ``with_bits`` also
+    returns the glass branch taken, ``[N]`` int32: bit 0 total internal
+    reflection, bit 1 the Russian roulette took the reflection."""
     diff_dir = cosine_hemisphere(nl, u_diff1, u_diff2)
     spec_dir = vm.reflect(d, normal)
 
@@ -68,4 +70,7 @@ def scatter(refl: Tensor, albedo: Tensor, d: Tensor, normal: Tensor,
     new_d = torch.where(is_diff, diff_dir,
                         torch.where(is_spec, spec_dir, refr_dir))
     tp_mul = albedo * torch.where(is_diff | is_spec, 1.0, rr_w[:, None])
-    return Scatter(new_d=new_d, tp_mul=tp_mul, specular=refl != DIFF)
+    sc = Scatter(new_d=new_d, tp_mul=tp_mul, specular=refl != DIFF)
+    if with_bits:
+        return sc, tir.to(torch.int32) | (take_refl.to(torch.int32) << 1)
+    return sc

@@ -8,9 +8,14 @@ max_vlp`` (wrapping modulo ``light_points``) of every VPL depth, with
 shadow rays that pass through emitters, and averages over the window.
 ``sample_lights`` combines the two as ``(direct + vpl) / 2``.
 
-Occlusion can come from outside (``occ_light``/``occ_vpl``): the re-walk
-of the many-sphere gradient reads it off the facts of a prior pass
-instead of scanning, and ``with_occ`` returns it, for the collector.
+The shadow scans take the tracer's ``scan_backend``: ``"xla"`` the direct
+all-pairs test, ``"mxu"`` its matmul form, ``"pallas"`` the any-hit scan
+kernel (`ops.pallas_scan.anyhit_tiles`, forward only), which may skip the
+segments of lanes outside ``active`` (the caller's live diffuse lanes,
+whose contributions are the only ones it keeps). Occlusion can also come
+from outside (``occ_light``/``occ_vpl``, which take precedence): the
+re-walk of the many-sphere gradient reads it off the facts of a prior
+pass instead of scanning, and ``with_occ`` returns it, for the collector.
 """
 
 from __future__ import annotations
@@ -52,6 +57,29 @@ def _segments(target: Tensor, hp: Tensor):
     return sdir, length, length - EPSILON
 
 
+def _occluded(scene: Scene, hp: Tensor, sdir: Tensor, maxt: Tensor,
+              vacuum: bool, scan_backend: str, active: Tensor | None
+              ) -> Tensor:
+    """Shadow any-hit ``[N, K]`` of the segments from ``hp [N, 3]`` along
+    ``sdir [N, K, 3]`` up to ``maxt [N, K]``, flattened lane-major as
+    JAX's scans take them."""
+    flat_o = hp[:, None, :].expand_as(sdir).reshape(-1, 3)
+    flat_d, flat_maxt = sdir.reshape(-1, 3), maxt.reshape(-1)
+    if scan_backend == "pallas":
+        from gpu_bidirectional_raytracer_tpu_torch.ops import pallas_scan
+
+        act = (torch.ones_like(hp[:, 0], dtype=torch.bool) if active is None
+               else active)
+        occ = pallas_scan.anyhit_tiles(
+            scene, flat_o, flat_d, flat_maxt,
+            act[:, None].expand(maxt.shape).reshape(-1), vacuum=vacuum)
+    else:
+        test = isect.intersect_p_vacuum if vacuum else isect.intersect_p
+        occ = test(scene, flat_o, flat_d, flat_maxt,
+                   method="mxu" if scan_backend == "mxu" else "direct")
+    return occ.reshape(maxt.shape)
+
+
 def _count_shadow_work(work: dict, scene: Scene, hp: Tensor, sdir: Tensor,
                        maxt: Tensor, set_up: Tensor, cast: Tensor,
                        lit: Tensor, vacuum: bool) -> None:
@@ -74,14 +102,16 @@ def sample_direct(scene: Scene, cfg: IntegratorConfig,
                   light_idx: tuple[int, ...], hp: Tensor, nl: Tensor,
                   light_u: Tensor, work: dict | None = None,
                   occ_override: Tensor | None = None,
-                  with_occ: bool = False):
+                  with_occ: bool = False, scan_backend: str = "xla",
+                  active: Tensor | None = None):
     """Direct light at ``hp [N,3]`` with shading normal ``nl [N,3]``.
     ``light_u [L, 2, N]`` are the uniforms of each light slot. ``work``,
     when given, receives the shadow work per lane (`_count_shadow_work`).
     ``occ_override [N, L]``: the occlusion of each sample, given, in place
     of the shadow scan. ``with_occ`` returns ``(radiance, occluded [N, L],
     reached [N, L])``, where ``reached`` is the gate of the contribution
-    (facing, ``wi > 0`` and not occluded)."""
+    (facing, ``wi > 0`` and not occluded). ``scan_backend`` and ``active
+    [N]`` choose the shadow scan (see the module note)."""
     n = hp.shape[0]
     out = torch.zeros((n, 3), dtype=hp.dtype, device=hp.device)
     if not light_idx:
@@ -98,12 +128,8 @@ def sample_direct(scene: Scene, cfg: IntegratorConfig,
     facing = wo <= 0.0
     wo = -wo
     wi = vm.dot(sdir, nl[:, None, :])
-    if occ_override is not None:
-        occluded = occ_override
-    else:
-        occluded = isect.intersect_p(
-            scene, hp[:, None, :].expand_as(sdir).reshape(-1, 3),
-            sdir.reshape(-1, 3), maxt.reshape(-1)).reshape(length.shape)
+    occluded = (occ_override if occ_override is not None else _occluded(
+        scene, hp, sdir, maxt, False, scan_backend, active))
 
     scale = ((4.0 * math.pi) * lrad * lrad)[None, :] * wi * wo / torch.clamp(
         length * length, min=_TINY)
@@ -141,10 +167,12 @@ def vpl_window(cfg: IntegratorConfig, vpls: VplBuffer, vlp_index: int):
 def gather_vpls(scene: Scene, cfg: IntegratorConfig, vpls: VplBuffer,
                 vlp_index: int, hp: Tensor, nl: Tensor,
                 work: dict | None = None,
-                occ_override: Tensor | None = None, with_occ: bool = False):
+                occ_override: Tensor | None = None, with_occ: bool = False,
+                scan_backend: str = "xla", active: Tensor | None = None):
     """The VPL gather at ``hp``, averaged over the window: ``[N, 3]``.
-    ``occ_override [N, K]`` and ``with_occ`` as in `sample_direct`; the
-    gate of a slot also needs the slot to be valid."""
+    ``occ_override [N, K]``, ``with_occ``, ``scan_backend`` and ``active``
+    as in `sample_direct`; the gate of a slot also needs the slot to be
+    valid. Its shadow rays pass through emitters (the vacuum scan)."""
     w_hp, w_rad, w_nl, w_valid = vpl_window(cfg, vpls, vlp_index)
     k = w_hp.shape[0]
     sdir, length, maxt = _segments(w_hp[None, :, :].expand(
@@ -153,12 +181,8 @@ def gather_vpls(scene: Scene, cfg: IntegratorConfig, vpls: VplBuffer,
     facing = wo <= 0.0
     wo = -wo
     wi = vm.dot(sdir, nl[:, None, :])
-    if occ_override is not None:
-        occluded = occ_override
-    else:
-        occluded = isect.intersect_p_vacuum(
-            scene, hp[:, None, :].expand_as(sdir).reshape(-1, 3),
-            sdir.reshape(-1, 3), maxt.reshape(-1)).reshape(length.shape)
+    occluded = (occ_override if occ_override is not None else _occluded(
+        scene, hp, sdir, maxt, True, scan_backend, active))
     contrib = w_rad[None, :, :] * (wi * wo)[..., None]
     cast = facing & (wi > 0.0) & w_valid[None, :]
     mask = cast & torch.logical_not(occluded)
@@ -183,20 +207,22 @@ def sample_lights(scene: Scene, cfg: IntegratorConfig,
                   vlp_index: int | None = None,
                   work: dict | None = None,
                   occ_light: Tensor | None = None,
-                  occ_vpl: Tensor | None = None, with_occ: bool = False):
+                  occ_vpl: Tensor | None = None, with_occ: bool = False,
+                  scan_backend: str = "xla", active: Tensor | None = None):
     """Full NEE: direct light plus, with VPLs, the ``(direct + vpl) / 2``
     combine. ``occ_light [N, L]``/``occ_vpl [N, K]``: occlusion given in
     place of the shadow scans. ``with_occ`` returns ``(radiance,
     reached_light [N, L], reached_vpl [N, K] | None)``, the gates of
-    `sample_direct` and `gather_vpls`."""
+    `sample_direct` and `gather_vpls`. ``scan_backend`` and ``active``
+    choose the shadow scans (see the module note)."""
     direct = sample_direct(scene, cfg, light_idx, hp, nl, light_u, work,
-                           occ_light, with_occ)
+                           occ_light, with_occ, scan_backend, active)
     if with_occ:
         direct, _, reached_l = direct
     if not cfg.use_vpl or vpls is None:
         return (direct, reached_l, None) if with_occ else direct
     vpl = gather_vpls(scene, cfg, vpls, vlp_index, hp, nl, work, occ_vpl,
-                      with_occ)
+                      with_occ, scan_backend, active)
     if with_occ:
         vpl, _, reached_v = vpl
     total = direct + vpl

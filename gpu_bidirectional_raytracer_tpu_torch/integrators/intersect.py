@@ -1,13 +1,17 @@
 """Vectorized ray-sphere intersection.
 
-Port of ``gpu_bidirectional_raytracer_tpu/integrators/intersect.py`` in its
-direct form: all-pairs ``[N rays, S spheres]`` quadratic roots with the
-reference's root choice (the smaller root if > EPSILON, else the larger if
-> EPSILON, else miss), the 1e-6 tangency clamp on the discriminant, a
-nearest-hit scan that keeps the lowest index on ties, and the any-hit
-tests for shadow rays (the vacuum variant lets emitters through).
-`sphere_root` is the same root for one given sphere per lane: what the
-re-walk of the many-sphere gradient uses instead of the scan.
+Port of ``gpu_bidirectional_raytracer_tpu/integrators/intersect.py``:
+all-pairs ``[N rays, S spheres]`` quadratic roots with the reference's
+root choice (the smaller root if > EPSILON, else the larger if > EPSILON,
+else miss), the 1e-6 tangency clamp on the discriminant, a nearest-hit
+scan that keeps the lowest index on ties, and the any-hit tests for shadow
+rays (the vacuum variant lets emitters through). ``method="direct"``
+evaluates ``op = p - o`` as the reference does; ``method="mxu"`` expands
+the two dot products so that their cross terms are ``[N, 3] @ [3, S]``
+matrix products, whose backward is matrix products too (the roots agree
+with the direct form to about 1e-3 at Cornell scale). `sphere_root` is the
+direct root for one given sphere per lane: what the re-walk of the
+many-sphere gradient uses instead of the scan.
 """
 
 from __future__ import annotations
@@ -21,12 +25,39 @@ from gpu_bidirectional_raytracer_tpu_torch.core.types import EPSILON, Scene
 _BIG = 1e20  # miss sentinel of the nearest-hit scan
 
 
+def _tf32_matmuls() -> bool:
+    """Whether float32 matrix products on the card may round to TF32."""
+    matmul = torch.backends.cuda.matmul
+    precision = getattr(matmul, "fp32_precision", None)
+    return matmul.allow_tf32 if precision is None else precision == "tf32"
+
+
+def _cross(a: Tensor, p: Tensor) -> Tensor:
+    """``a @ p.T`` (``[N, 3] @ [3, S]``) in full float32. TF32 would move
+    the roots by far more than the expanded form's 1e-3, so on the card
+    this raises while TF32 matrix products are on, rather than change a
+    setting that belongs to the caller."""
+    if a.device.type == "cuda" and _tf32_matmuls():
+        raise ValueError(
+            "the mxu sphere scan needs full float32 matrix products: turn "
+            "TF32 off (torch.backends.cuda.matmul.fp32_precision = 'ieee')")
+    return torch.matmul(a, p.T)
+
+
 def sphere_distances(scene: Scene, o: Tensor, d: Tensor,
-                     eps: float = EPSILON) -> Tensor:
-    """All-pairs hit distances ``[N, S]``; 0 where there is no hit."""
-    op = scene.p[None, :, :] - o[:, None, :]                     # [N, S, 3]
-    b = vm.dot(op, d[:, None, :])
-    opop = vm.dot(op, op)
+                     eps: float = EPSILON, method: str = "direct") -> Tensor:
+    """All-pairs hit distances ``[N, S]``; 0 where there is no hit.
+    ``method``: ``"direct"`` or ``"mxu"`` (see the module note)."""
+    if method == "mxu":
+        b = _cross(d, scene.p) - vm.dot(o, d)[:, None]
+        opop = (vm.dot(scene.p, scene.p)[None, :] - 2.0 * _cross(o, scene.p)
+                + vm.dot(o, o)[:, None])
+    elif method == "direct":
+        op = scene.p[None, :, :] - o[:, None, :]                 # [N, S, 3]
+        b = vm.dot(op, d[:, None, :])
+        opop = vm.dot(op, op)
+    else:
+        raise ValueError(f"unknown method {method!r}")
     det = b * b - opop + (scene.rad * scene.rad)[None, :]
     hit = det >= 0.0
     sq = torch.sqrt(torch.clamp(torch.where(hit, det, 1.0), min=1e-6))
@@ -37,10 +68,10 @@ def sphere_distances(scene: Scene, o: Tensor, d: Tensor,
     return torch.where(hit, t, zero)
 
 
-def intersect(scene: Scene, o: Tensor, d: Tensor
+def intersect(scene: Scene, o: Tensor, d: Tensor, method: str = "direct"
               ) -> tuple[Tensor, Tensor, Tensor]:
     """Nearest hit: ``(hit [N] bool, t [N], id [N] int64)``."""
-    ts = sphere_distances(scene, o, d)
+    ts = sphere_distances(scene, o, d, method=method)
     masked = torch.where(ts > 0.0, ts, torch.full_like(ts, _BIG))
     t, idx = torch.min(masked, dim=-1)
     # torch.min's index on ties is not specified: take the lowest index.
@@ -48,16 +79,17 @@ def intersect(scene: Scene, o: Tensor, d: Tensor
     return t < _BIG, t, idx
 
 
-def intersect_p(scene: Scene, o: Tensor, d: Tensor, maxt: Tensor) -> Tensor:
+def intersect_p(scene: Scene, o: Tensor, d: Tensor, maxt: Tensor,
+                method: str = "direct") -> Tensor:
     """Any hit with ``0 < t < maxt`` (``maxt [N]``)."""
-    ts = sphere_distances(scene, o, d)
+    ts = sphere_distances(scene, o, d, method=method)
     return torch.any((ts > 0.0) & (ts < maxt[:, None]), dim=-1)
 
 
 def intersect_p_vacuum(scene: Scene, o: Tensor, d: Tensor,
-                       maxt: Tensor) -> Tensor:
+                       maxt: Tensor, method: str = "direct") -> Tensor:
     """Any hit within ``maxt`` by a non-emissive sphere."""
-    ts = sphere_distances(scene, o, d)
+    ts = sphere_distances(scene, o, d, method=method)
     blocker = torch.logical_not(scene.is_light())[None, :]
     return torch.any((ts > 0.0) & (ts < maxt[:, None]) & blocker, dim=-1)
 

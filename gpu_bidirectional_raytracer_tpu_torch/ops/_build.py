@@ -37,7 +37,8 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # Kernel sources by name; each exports its C entry points (`_ENTRIES`).
 SOURCES = {"trace_kernel": CSRC_DIR / "trace_kernel.cu",
            "grad_kernel": CSRC_DIR / "grad_kernel.cu",
-           "bounce_kernel": CSRC_DIR / "bounce_kernel.cu"}
+           "bounce_kernel": CSRC_DIR / "bounce_kernel.cu",
+           "scan_kernel": CSRC_DIR / "scan_kernel.cu"}
 
 _loaded: dict[str, ctypes.CDLL] = {}
 build_log: dict[str, str] = {}      # nvcc's output (ptxas register counts)
@@ -100,7 +101,7 @@ def build_all() -> dict[str, Path]:
             for name, st in started.items()}
 
 
-_TABLE_ARGS = [                                   # shared by all five
+_TABLE_ARGS = [                        # shared by the five eye-path kernels
     ctypes.c_void_p, ctypes.c_int,                # scene, n_spheres
     ctypes.c_void_p, ctypes.c_int,                # vpl, n_vpl
     ctypes.c_void_p, ctypes.c_int,                # keys, n_rows
@@ -158,6 +159,22 @@ _ENTRIES = {
         ctypes.c_void_p,                          # hit ids [n] int32
         ctypes.c_void_p, ctypes.c_void_p,         # occlusion [L, n], [V, n]
         ctypes.c_void_p,                          # stream
+    ]),
+    "nearest_kernel": ("scan_kernel", "nearest_kernel_launch", [
+        ctypes.c_void_p, ctypes.c_int,            # scene, n_spheres
+        ctypes.c_void_p, ctypes.c_void_p,         # o, d [n, 3]
+        ctypes.c_void_p, ctypes.c_int,            # alive [n] bool, n
+        ctypes.c_void_p, ctypes.c_void_p,         # t [n], hit id [n]
+        ctypes.c_void_p, ctypes.c_void_p,         # p, e, c [9, n], refl [n]
+        ctypes.c_int, ctypes.c_void_p,            # threads per block, stream
+    ]),
+    "anyhit_kernel": ("scan_kernel", "anyhit_kernel_launch", [
+        ctypes.c_void_p, ctypes.c_int,            # scene, n_spheres
+        ctypes.c_void_p, ctypes.c_void_p,         # o, d [n, 3]
+        ctypes.c_void_p, ctypes.c_void_p,         # maxt [n], active [n] bool
+        ctypes.c_int, ctypes.c_int,               # n, vacuum
+        ctypes.c_void_p,                          # occluded [n] bool
+        ctypes.c_int, ctypes.c_void_p,            # threads per block, stream
     ]),
 }
 

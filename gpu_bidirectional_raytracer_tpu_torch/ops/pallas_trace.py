@@ -14,7 +14,8 @@ The random tape of a mix32 key is regenerated in the kernel from per-row
 site keys (`rng.site_key_rows`), bit for bit `rng.site_uniforms`; for any
 other key (threefry) `tape_table` builds the ``[K, n]`` tape on the card
 (`rng.rows_uniforms`: `rng.site_uniforms`' values, every row in one
-pass), in the same row order, and the kernel reads it (`Tape`). All five kernels take their tape this way.
+pass), in the same row order, and the kernel reads it (`Tape`). All five
+eye-path kernels take their tape this way.
 
 A wrapper given CPU tensors runs its plain PyTorch version
 (`trace_camera_plain`, or `path_tracer.trace` in ray mode). Given CUDA
@@ -42,10 +43,11 @@ from gpu_bidirectional_raytracer_tpu_torch.integrators import path_tracer
 from gpu_bidirectional_raytracer_tpu_torch.integrators.direct import vpl_window
 
 # Launches of each CUDA kernel, counted where the kernel is launched
-# (`ops.pallas_grad`, `ops.pallas_bounce` and `ops.pallas_bounce_grad`
-# count theirs here too).
+# (`ops.pallas_grad`, `ops.pallas_bounce`, `ops.pallas_bounce_grad` and
+# `ops.pallas_scan` count theirs here too).
 LAUNCHES = {"trace_kernel": 0, "grad_kernel": 0, "fused_kernel": 0,
-            "bounce_kernel": 0, "aux_kernel": 0}
+            "bounce_kernel": 0, "aux_kernel": 0, "nearest_kernel": 0,
+            "anyhit_kernel": 0}
 
 _CAM_ROWS = 2                 # tape rows of the camera jitter
 _SMEM_LIMIT = 48 * 1024       # static shared-memory budget of one block

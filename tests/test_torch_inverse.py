@@ -263,9 +263,9 @@ def test_projections_match_jax(monkeypatch):
 
 
 def test_unported_settings_raise_on_cpu():
-    """The gradient carriers of vis_grad_tau and sil_grad_tau and the 'mxu'
-    backend are not ported: they raise on every device, not only on the
-    card."""
+    """The gradient carriers of vis_grad_tau and sil_grad_tau are not
+    ported: they raise on every device, not only on the card, and through
+    every backend, the matmul scans ('mxu') included."""
     scene, cam, cfg, li, img = _setup(False)
     tscene, tcam = to_torch_scene(scene), to_torch_camera(cam)
     target = torch.tensor(np.asarray(img))
@@ -274,7 +274,7 @@ def test_unported_settings_raise_on_cpu():
                 "sil_grad_tau": "silhouette carrier"}
     for field, carrier in carriers.items():
         tcfg = dataclasses.replace(to_torch_config(cfg), **{field: 0.5})
-        for backend in ("auto", "pallas", "xla"):
+        for backend in ("auto", "pallas", "xla", "mxu"):
             with pytest.raises(NotImplementedError, match=carrier):
                 TG.render_loss_grad(tscene, tcam, key, target, tcfg, W, H,
                                     li, 1, "l2", backend)
@@ -284,13 +284,6 @@ def test_unported_settings_raise_on_cpu():
                                  cfg=tcfg, width=W, height=H)
         with pytest.raises(NotImplementedError):
             inv.step()
-    with pytest.raises(NotImplementedError, match="mxu"):
-        TG.render_loss_grad(tscene, tcam, key, target, to_torch_config(cfg),
-                            W, H, li, 1, "l2", "mxu")
-    with pytest.raises(NotImplementedError, match="mxu"):
-        TG.InverseRenderer(scene=tscene, cam=tcam, target=target,
-                           cfg=to_torch_config(cfg), width=W, height=H,
-                           backend="mxu")
     with pytest.raises(ValueError):
         tpg.trace_pallas_loss_grad(tscene, to_torch_config(cfg), li, None,
                                    key, 0, target, loss="l2_unbiased")
@@ -375,8 +368,9 @@ def test_fitter_auto_backend_is_jax_rule():
     assert rule("cpu", 9) == "xla"
     assert rule("cuda", 783, "pallas") == "pallas"
     assert rule("cpu", 9, "pallas") == "pallas"
-    with pytest.raises(NotImplementedError, match="mxu"):
-        rule("cuda", 9, "mxu")
+    assert rule("cuda", 9, "mxu") == "mxu"
+    with pytest.raises(ValueError):
+        rule("cuda", 9, "bvh")
 
 
 def test_radiance_route_takes_any_sphere_count_on_the_plain_backend():

@@ -147,7 +147,8 @@ def test_port_and_smoke_script_never_import_jax():
         "import gpu_bidirectional_raytracer_tpu_torch as p\n"
         "from gpu_bidirectional_raytracer_tpu_torch import convert, camera\n"
         "from gpu_bidirectional_raytracer_tpu_torch.ops import _build, "
-        "pallas_bounce, pallas_bounce_grad, pallas_grad, pallas_trace\n"
+        "pallas_bounce, pallas_bounce_grad, pallas_grad, pallas_scan, "
+        "pallas_trace\n"
         "from gpu_bidirectional_raytracer_tpu_torch.diff import gradients\n"
         "from gpu_bidirectional_raytracer_tpu_torch.render import film, "
         "progressive\n"

@@ -2,16 +2,21 @@
 its time on the card.
 
     python3 tools/profile_torch_pass.py [--scene cornell|complex]
-        [--size 512] [--height H] [--passes 20] [--train]
+        [--size 512] [--height H] [--passes 20] [--train | --scan
+        [--compact]]
 
-Without ``--train``: renders the scene (``assets/scenes/<scene>.scn``)
-with the port's `Renderer` on the card. With ``--train``: runs the
-training step the JAX package's bench times, `render_loss_grad` (l2, spp
-1, ``IntegratorConfig()``, the default backend) against a black target,
-on a fresh mix32 key each step: the fused kernel on cornell.scn, the fact
-kernel and the re-walk on complex.scn (783 spheres; the JAX bench runs it
-at ``--size 512 --height 384``). Either way it
-warms up, times ``--passes`` passes or steps with CUDA events, then traces
+Without ``--train`` or ``--scan``: renders the scene
+(``assets/scenes/<scene>.scn``) with the port's `Renderer` on the card.
+With ``--train``: runs the training step the JAX package's bench times,
+`render_loss_grad` (l2, spp 1, ``IntegratorConfig()``, the default
+backend) against a black target, on a fresh mix32 key each step: the
+fused kernel on cornell.scn, the fact kernel and the re-walk on
+complex.scn (783 spheres; the JAX bench runs it at ``--size 512 --height
+384``). With ``--scan``: traces samples through the per-bounce scan route,
+`path_tracer.trace(scan_backend="pallas")`, as tools/bench_complex.py
+does (sample ``s``: jittered camera rays and the light subpaths of that
+sample, mix32 key 0), with ``--compact`` its lane compaction. Either way it
+warms up, times ``--passes`` passes, steps or samples with CUDA events, then traces
 as many again with ``torch.profiler`` (CPU and CUDA activities) and prints
 one JSON line: the time per pass without and with the profiler, the
 device time per pass summed over kernels, copies and sets, the device's
@@ -71,6 +76,46 @@ def _train_steps(scene, orig, target, width, height):
     return run
 
 
+def _scan_samples(scene, orig, target, width, height, compact=False):
+    """``run(k)``: k samples of the scan route, as tools/bench_complex.py
+    runs it."""
+    from gpu_bidirectional_raytracer_tpu_torch import camera as cam_mod
+    from gpu_bidirectional_raytracer_tpu_torch import rng
+    from gpu_bidirectional_raytracer_tpu_torch.core.types import (
+        Camera,
+        IntegratorConfig,
+    )
+    from gpu_bidirectional_raytracer_tpu_torch.integrators import (
+        light_tracer,
+        path_tracer,
+    )
+    from gpu_bidirectional_raytracer_tpu_torch.integrators.direct import (
+        static_light_indices,
+    )
+
+    cfg = IntegratorConfig()
+    cam = Camera.make(orig, target, width, height)
+    li = static_light_indices(scene)
+    key = rng.make_key(0)
+    n = width * height
+    px, py = cam_mod.pixel_grid(width, height, device=scene.device)
+    count = [0]
+
+    def run(k):
+        for _ in range(k):
+            s = count[0]
+            count[0] += 1
+            u = rng.site_uniforms(key, s, 0, rng.CAM_JITTER, 2, n,
+                                  device=scene.device)
+            rays = cam_mod.primary_rays(cam, width, height, u[0], u[1], px,
+                                        py)
+            vpls = light_tracer.trace_light_paths(scene, cfg, li, key, s)
+            path_tracer.trace(scene, cfg, li, rays, key, s, vpls=vpls,
+                              vlp_index=0, scan_backend="pallas",
+                              scan_compact=compact)
+    return run
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--scene", choices=("cornell", "complex"),
@@ -79,8 +124,13 @@ def main() -> int:
     ap.add_argument("--height", type=int, default=None,
                     help="height (default: the width)")
     ap.add_argument("--passes", type=int, default=20)
-    ap.add_argument("--train", action="store_true",
-                    help="profile the fused training step, not a pass")
+    what = ap.add_mutually_exclusive_group()
+    what.add_argument("--train", action="store_true",
+                      help="profile the training step, not a pass")
+    what.add_argument("--scan", action="store_true",
+                      help="profile samples of the per-bounce scan route")
+    ap.add_argument("--compact", action="store_true",
+                    help="with --scan: compact the live lanes each depth")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("profile_torch_pass: no CUDA device", file=sys.stderr)
@@ -91,8 +141,12 @@ def main() -> int:
     orig, target, scene = load_scene(
         os.path.join(REPO, "assets", "scenes", f"{args.scene}.scn"))
     height = args.height or args.size
-    run = (_train_steps if args.train else _passes)(scene, orig, target,
-                                                    args.size, height)
+    if args.scan:
+        run = _scan_samples(scene, orig, target, args.size, height,
+                            args.compact)
+    else:
+        run = (_train_steps if args.train else _passes)(scene, orig, target,
+                                                        args.size, height)
     run(6)
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
@@ -121,7 +175,9 @@ def main() -> int:
     device_ms = device_us / args.passes / 1e3
     print(json.dumps({
         "device": torch.cuda.get_device_name(0),
-        "what": "train_step" if args.train else "render_pass",
+        "what": ("train_step" if args.train else
+                 ("scan_sample_compact" if args.compact else "scan_sample")
+                 if args.scan else "render_pass"),
         "scene": args.scene, "width": args.size, "height": height,
         "passes": args.passes,
         "ms_per_pass": ms_per_pass,
