@@ -7,12 +7,14 @@ through the hand-written CUDA eye-path kernel; the training step and the
 inverse fitter through its hand-written adjoint kernels; the many-sphere
 route on complex.scn (783 spheres) at 512x384, the render through the
 per-depth bounce kernel and the training step through the fact kernel and
-the re-walk; and the per-bounce scan route there, the tracer's sphere
-scans through the nearest-hit and any-hit kernels, and the training step
-with the scans in matmul form. It holds every kernel against its plain
-PyTorch version and prints one line per phase, each with the seconds since
-the start. The launch counts a phase reads are set to 0 just before it
-drives its path.
+the re-walk; the per-bounce scan route there, the tracer's sphere scans
+through the nearest-hit and any-hit kernels, and the training step with
+the scans in matmul form; and the gradient carriers (``vis_grad_tau``
+through the adjoint kernels' carrier instantiations and the re-walk,
+``sil_grad_tau`` in PyTorch) in the training step and the fitter. It holds
+every kernel against its plain PyTorch version and prints one line per
+phase, each with the seconds since the start. The launch counts a phase
+reads are set to 0 just before it drives its path.
 
 1. ``device``: the card, and ``nvidia-smi``'s name and power limit;
 2. ``build``: nvcc builds every kernel source into ``build/kernels/``,
@@ -33,13 +35,26 @@ drives its path.
    (``_max_rel``) at most 1e-3; the fused kernel's radiance against
    ``trace_kernel``'s on the same rays (``exact_frac``, under the radiance
    protocol); two launches on the same inputs give the same bits;
-5. ``tape_vs_plain``: a threefry key (the fitter's), whose tape the
+5. ``carrier_vs_plain``: the adjoint kernels with the visibility carrier
+   (``vis_grad_tau`` 2) against autograd of the plain tracer, which
+   carries it: ``grad_kernel`` at 64x48, depth 7, on simple.scn with an
+   occluder (without and with VPLs) and on Cornell with VPLs, and
+   ``fused_kernel`` at 512x512 on Cornell and on the occluder scene with
+   VPLs; the gates of 4, the radiance bit for bit against the plain
+   tracer's, which is bit for bit the same with the carrier off, and on
+   the occluder scene the occluder's and the VPL table's gradients moved
+   by the carrier, the occluder's by more than the gates let pass (on
+   Cornell the wall spheres hold every shadow segment, so the carrier
+   adds nothing); ptxas's registers, spills and stack of the four
+   instantiations of the adjoint template: no spills, and the
+   carrier-off ones at their registers from before the carrier;
+6. ``tape_vs_plain``: a threefry key (the fitter's), whose tape the
    kernels read streamed from the card, at 64x48 on cornell.scn:
    ``trace_kernel`` in camera and ray mode under the radiance protocol,
    ``grad_kernel`` and ``fused_kernel`` against autograd of the plain
    tracer under the gradient protocol of 4; and the tape built on the
    card against the same tape built on the CPU, bit for bit;
-6. ``bounce_vs_plain``: at 64x48, depth 7, on complex.scn (mix32 and
+7. ``bounce_vs_plain``: at 64x48, depth 7, on complex.scn (mix32 and
    threefry keys) and on cornell.scn with ``direct_only``: each depth's
    ``bounce_kernel`` launch against ``bounce_plain`` on the same state
    (``depth_exact_frac``); the whole trace against the full-scan plain
@@ -49,7 +64,7 @@ drives its path.
    at most 3.5%); on complex.scn the re-walk's gradients from the
    kernel's facts against autograd of the plain tracer, under 4's
    gradient protocol;
-7. ``scan_vs_plain``: at 64x48, depth 7, on complex.scn (mix32 and
+8. ``scan_vs_plain``: at 64x48, depth 7, on complex.scn (mix32 and
    threefry keys) and on cornell.scn, with VPLs: every scan of a plain
    trace of the scan route, with the dead lanes and dead warps of its
    depths, through ``nearest_kernel`` and ``anyhit_kernel`` (both modes)
@@ -58,13 +73,13 @@ drives its path.
    through the kernels against the full-scan plain tracer under the
    protocol, and equal to the plain route bit for bit; compaction equal
    bit for bit;
-8. ``main_path``: ``Renderer(cornell.scn, 512x512, IntegratorConfig(),
+9. ``main_path``: ``Renderer(cornell.scn, 512x512, IntegratorConfig(),
    seed=0)`` for 32 passes (one ``trace_kernel`` launch per pass); image
    checks (finite, mean > 0, left wall red, right wall blue); the same
    passes through the plain version on the card under the protocol; ms
    per pass with CUDA events after a warm-up; the PPM written to a
    temporary directory;
-9. ``train_path``: at 512x512 on cornell.scn with ``IntegratorConfig()``:
+10. ``train_path``: at 512x512 on cornell.scn with ``IntegratorConfig()``:
    (a) the bench's training step, ``render_loss_grad(spp=1, loss="l2",
    backend="auto")`` against a black target on mix32 keys, 20 steps (one
    ``fused_kernel`` launch per step, nothing else), ms per step, its
@@ -74,19 +89,32 @@ drives its path.
    and four ``grad_kernel`` launches per step; the loss falls), then one
    step with every default (``l2_unbiased``, spp 4: eight of each); the
    first step of each fitter against its plain autograd route at 512x512;
-10. ``complex_path``: ``Renderer(complex.scn, 512x384, IntegratorConfig(),
+11. ``complex_path``: ``Renderer(complex.scn, 512x384, IntegratorConfig(),
    backend="auto")`` for 8 passes: 7 ``bounce_kernel`` launches per pass
    and nothing else; image checks; the same 8 passes in 96-row bands
    (``tile_rows=96``) equal to the untiled ones bit for bit; one pass
    against one pass of the plain banded program (``backend="xla"``) under
    the protocol; ms per pass with CUDA events;
-11. ``complex_train``: ``render_loss_grad(backend="pallas")`` on
+12. ``complex_train``: ``render_loss_grad(backend="pallas")`` on
    complex.scn at 512x384, l2 against black, spp 1, 3 steps: 7
    ``aux_kernel`` launches per step and nothing else; ms per step, peak
    GiB; the step against ``backend="xla"`` (plain full-scan autograd) at
    128x96, and at 512x384 the re-walk from the kernel's facts against the
    re-walk from the plain collector's, under 4's gradient protocol;
-12. ``scan_path``: `path_tracer.trace(scan_backend="pallas")` on
+13. ``carrier_train``: at 512x512 on cornell.scn, (a) the fused step with
+   the visibility carrier (one ``fused_kernel_vis`` launch a step and
+   nothing else) beside the carrier-off step, 20 steps each, ms per step
+   and peak GiB; (b) the step with the silhouette carrier (``sil_grad_tau``
+   1, spp 1, l2: ``trace_kernel`` and ``grad_kernel`` and the carrier in
+   PyTorch), 5 steps; (c) ``InverseRenderer`` with both carriers and tau
+   annealing (0.25 over 8 steps), 8 steps at spp 4 (four ``trace_kernel``
+   and four ``grad_kernel_vis`` launches a step; the loss falls), s per
+   step, its first step against its plain autograd route under 4's
+   gates; (d) complex.scn's step through the fact kernel and the re-walk
+   with the visibility carrier at 128x96 (plain soft visibility keeps
+   ``[N * slots, S, 3]`` per depth for the backward) against plain
+   full-scan autograd under 4's gates, peak GiB;
+14. ``scan_path``: `path_tracer.trace(scan_backend="pallas")` on
    complex.scn at 512x384 with ``IntegratorConfig()``, 8 samples as
    tools/bench_complex.py makes them, without and with ``scan_compact``:
    7 ``nearest_kernel`` and 14 ``anyhit_kernel`` launches a sample and
@@ -95,17 +123,21 @@ drives its path.
    the bounce route and the plain tracer under the protocol; the
    ``scan_backend="mxu"`` forward against ``"xla"`` under
    tests/test_mxu.py's bounds (mean within 2%, under 5% of pixels off);
-13. ``mxu_train``: ``render_loss_grad(backend="mxu")`` on complex.scn at
+15. ``mxu_train``: ``render_loss_grad(backend="mxu")`` on complex.scn at
    512x384, l2 against black, spp 1, 2 steps, ms per step and peak GiB,
    and the same with ``backend="xla"``; at 128x96 the two against each
    other under tests/test_mxu.py's bounds (loss within 2e-2, gradient
    cosines above 0.98) on that file's 80-sphere scene, and on complex.scn
    for the loss and the e and c gradients;
-14. ``kernels``: one JSON line with a row per kernel (seven): launches on
+16. ``kernels``: one JSON line with a row per kernel (seven): launches on
    its path, ms per launch, the plain version's ms, and the bound; the
    bounce kernel's row also times 128, 256 and 512 threads per block, the
    scan kernels' rows give each depth's time, without and with
-   compaction.
+   compaction, and the adjoint kernels' rows their carrier
+   instantiations' ``vis_ms``, ``vis_launches``, ``vis_bound_ms`` (the
+   carrier's blocker terms counted by ``with_stats``) and
+   ``vis_max_abs_err`` (from 5's occluder cases, where the carrier
+   moves the gradient).
 
 The last line is ``{"ok": true, "device": {...}}``. Any failed check exits
 non-zero before it. Without a card, or without the package beside it, the
@@ -114,6 +146,7 @@ script exits non-zero and prints no result.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
 import os
@@ -183,6 +216,27 @@ TRAIN_COMPARED = ("step", "loss_grad_plain", "fit_step_l2_spp4",
 # scales with an array's largest entry, which is loose for heavy-tailed
 # arrays such as the ray gradients; the relative one is not.
 GRAD_RTOL, GRAD_ATOL_REL, LOSS_RTOL, GRAD_MAX_REL = 2e-3, 2e-3, 1e-5, 1e-3
+# The gradient carriers: the visibility carrier's tau (JAX's test value),
+# the silhouette carrier's, the steps of each timed leg, and the fitter's
+# annealing. An occluder of radius 6 at (0, 40, 0) between simple.scn's
+# light and its floor (tests/test_pallas_grad.py:110-160) makes the
+# carrier the bulk of the blocker's gradient.
+VIS_TAU, SIL_TAU, SIL_STEPS = 2.0, 1.0, 5
+TAU_ANNEAL, ANNEAL_STEPS = 0.25, 8
+SIMPLE = os.path.join(os.path.dirname(SCENE), "simple.scn")
+OCCLUDER = (6.0, (0.0, 40.0, 0.0))
+# FP32 operations of one carrier term as the kernel does it
+# (csrc/grad_kernel.cu::blocker plus the product's update): op 3, b 5,
+# |op|^2 5, det 4, width 2, the silhouette sigmoid 5, the clamped root 3,
+# the endpoint sigmoid 6, the gate 2, the product 2. Each candidate
+# blocker of a cast sample is two terms (the product, then the adjoint's
+# recompute); the adjoint's own 52 operations on a gated blocker and the
+# segment's adjoint are not counted.
+OPS_CARRIER_TERM = 37
+# ptxas's registers of the carrier-off instantiations (CUDA 12.8, sm_90a),
+# as they were before the carrier branch came in: the branch sits behind a
+# template parameter and must leave them as they are.
+CARRIER_OFF_REGISTERS = {"grad_kernel": 112, "fused_kernel": 118}
 
 
 class SmokeFailure(RuntimeError):
@@ -244,7 +298,7 @@ def smi_line() -> str:
     return out.stdout.strip()
 
 
-def phase_build() -> None:
+def phase_build() -> dict:
     from gpu_bidirectional_raytracer_tpu_torch.ops import _build
 
     removed = []
@@ -263,6 +317,58 @@ def phase_build() -> None:
                         for k, v in _build.build_seconds.items()},
           libraries=[p.name for p in libs.values()], stale_locks=removed,
           ptxas=ptxas)
+    return {name: _ptxas_entries(log)
+            for name, log in _build.build_log.items()}
+
+
+def _timed_steps(step, n_steps: int) -> dict:
+    """ms per step (CUDA events) of ``step(i)``, i = 1..n_steps, after a
+    warm-up step, with the launches and peak memory of the timed steps."""
+    from gpu_bidirectional_raytracer_tpu_torch.ops import pallas_trace as ops
+
+    step(0)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for i in range(n_steps):
+        out = step(1 + i)
+    stop.record()
+    torch.cuda.synchronize()
+    loss, g = out
+    check(bool(torch.isfinite(loss)) and all(
+        bool(torch.isfinite(getattr(g, k)).all())
+        for k in ("p", "rad", "e", "c")), "carrier step: non-finite")
+    return {"ms_per_step": start.elapsed_time(stop) / n_steps,
+            "launches": dict(ops.LAUNCHES),
+            "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+            "loss": float(loss)}
+
+
+def _ptxas_entries(log: str) -> dict:
+    """ptxas's registers, spill bytes and stack bytes per entry function
+    of one nvcc log."""
+    import re
+
+    out, entry = {}, None
+    for ln in log.splitlines():
+        m = re.search(r"entry function '([^']+)'", ln)
+        if m:
+            entry = m.group(1)
+            out[entry] = {}
+        elif entry is not None:
+            m = re.search(r"Used (\d+) registers", ln)
+            if m:
+                out[entry]["registers"] = int(m.group(1))
+            m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill "
+                          r"stores, (\d+) bytes spill loads", ln)
+            if m:
+                out[entry].update(stack=int(m.group(1)),
+                                  spill_stores=int(m.group(2)),
+                                  spill_loads=int(m.group(3)))
+    return out
 
 
 def _scene_at(path=SCENE, device="cuda"):
@@ -277,8 +383,6 @@ def phase_kernel_vs_plain(device) -> float:
     Two configs: the default (VPLs, gains 1, (direct + vpl) / 2), and the
     CPU-golden gains (10, no VPLs) with 3x3 stratified jitter, so every
     parameter the kernel takes is exercised."""
-    import dataclasses
-
     from gpu_bidirectional_raytracer_tpu_torch import camera as cam_mod
     from gpu_bidirectional_raytracer_tpu_torch import rng
     from gpu_bidirectional_raytracer_tpu_torch.core.types import (
@@ -573,6 +677,329 @@ def phase_grad_vs_plain(device) -> float:
               f"grad_vs_plain {name}: two launches differ")
         worst = max(worst, _check_diff(f"grad_vs_plain {name}", r))
     return worst
+
+
+def _occluder_scene(device):
+    """simple.scn with `OCCLUDER`, a diffuse sphere between its light and
+    its floor."""
+    orig, target, base = _scene_at(SIMPLE, device)
+    r, p = OCCLUDER
+
+    def cat(a, row):
+        return torch.cat([a, torch.tensor([row], dtype=a.dtype,
+                                          device=a.device)])
+
+    return orig, target, base.replace(
+        rad=torch.cat([base.rad, torch.tensor([r], device=device)]),
+        p=cat(base.p, list(p)), e=cat(base.e, [0.0, 0.0, 0.0]),
+        c=cat(base.c, [0.5, 0.5, 0.5]), refl=cat(base.refl, 0))
+
+
+def _grad_instantiations(ptxas: dict) -> dict:
+    """ptxas's numbers of the four instantiations of csrc/grad_kernel.cu's
+    kernel template, by ``(fused, vis)``."""
+    out = {}
+    for entry, v in ptxas.get("grad_kernel", {}).items():
+        if "grad_kernel" in entry and "ILb" in entry:
+            flags = entry.split("ILb", 1)[1]
+            fused, vis = flags[0] == "1", flags.split("ELb", 1)[1][0] == "1"
+            out[f"{'fused' if fused else 'grad'}_kernel"
+                f"{'_vis' if vis else ''}"] = v
+    return out
+
+
+def phase_carrier_vs_plain(device, ptxas: dict) -> dict:
+    """The adjoint kernels with the visibility carrier against autograd of
+    the plain tracer, which carries it: ``grad_kernel`` at 64x48, depth 7,
+    on the occluder scene without and with VPLs and on Cornell with VPLs,
+    and ``fused_kernel`` at 512x512 on Cornell and on the occluder scene.
+    Gates of `grad_vs_plain`, and: the radiance bit for bit against the
+    plain tracer, whose radiance is bit for bit the same with the carrier
+    off; on the occluder scene the gradients differ from the carrier-off
+    ones. Returns the largest |kernel - plain| of each kernel over the
+    occluder cases."""
+    from gpu_bidirectional_raytracer_tpu_torch import camera as cam_mod
+    from gpu_bidirectional_raytracer_tpu_torch import rng
+    from gpu_bidirectional_raytracer_tpu_torch.core.types import (
+        Camera,
+        IntegratorConfig,
+    )
+    from gpu_bidirectional_raytracer_tpu_torch.integrators import (
+        light_tracer,
+        path_tracer,
+    )
+    from gpu_bidirectional_raytracer_tpu_torch.integrators.direct import (
+        static_light_indices,
+    )
+    from gpu_bidirectional_raytracer_tpu_torch.ops import pallas_grad as pg
+    from gpu_bidirectional_raytracer_tpu_torch.ops import pallas_trace as ops
+
+    key = rng.make_key(0)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(0)
+    results, worst = {}, {"grad": 0.0, "fused": 0.0}
+    occ_cfg = IntegratorConfig(use_vpl=False, combine_half=False,
+                               vis_grad_tau=VIS_TAU)
+    vpl_cfg = IntegratorConfig(vis_grad_tau=VIS_TAU)
+    for name, path, cfg, w, h, fused in (
+            ("occluder", SIMPLE, occ_cfg, GRAD_W, GRAD_H, False),
+            ("occluder_vpl", SIMPLE, vpl_cfg, GRAD_W, GRAD_H, False),
+            ("cornell_vpl", SCENE, vpl_cfg, GRAD_W, GRAD_H, False),
+            ("fused_l2_512", SCENE, vpl_cfg, TRAIN_W, TRAIN_H, True),
+            ("occluder_fused_l2_512", SIMPLE, vpl_cfg, TRAIN_W, TRAIN_H,
+             True)):
+        orig, target, scene = (_occluder_scene(device) if path == SIMPLE
+                               else _scene_at(path, device))
+        n = w * h
+        cam = Camera.make(orig, target, w, h, device=device)
+        li = static_light_indices(scene)
+        ju = rng.site_uniforms(key, 0, 0, rng.CAM_JITTER, 2, n,
+                               device=device)
+        px, py = cam_mod.pixel_grid(w, h, device=device)
+        rays = cam_mod.primary_rays(cam, w, h, ju[0], ju[1], px, py)
+        vpls = (light_tracer.trace_light_paths(scene, cfg, li, key, 0)
+                if cfg.use_vpl else None)
+        vi = 0 if vpls is not None else None
+        cfg0 = dataclasses.replace(cfg, vis_grad_tau=0.0)
+        scene_tab, vpl_tab, tape = ops.launch_tables(
+            scene, cfg, li, key, 0, vpls, vi, n)
+        with torch.no_grad():
+            plain = path_tracer.trace(scene, cfg, li, rays, key, 0,
+                                      vpls=vpls, vlp_index=vi)
+            plain_off = path_tracer.trace(scene, cfg0, li, rays, key, 0,
+                                          vpls=vpls, vlp_index=vi)
+        if not fused:
+            cot = torch.rand((n, 3), generator=gen, device=device) * 2 - 1
+            r = _diff_vs_plain(pg.trace_pallas_diff, scene, cfg, li, rays,
+                               key, vpls, vi, cot)
+            launch = lambda c: pg.grad_launch(scene_tab, vpl_tab, tape, c,
+                                              li, rays, cot)
+            rad_k = pg.trace_pallas_diff(scene, cfg, li, rays, key, 0,
+                                         vpls=vpls, vlp_index=vi)
+        else:
+            tgt = torch.rand((n, 3), generator=gen, device=device) * 0.5
+            r = _fused_vs_plain(scene, cfg, li, rays, key, tgt, vpls, vi)
+            rad_k = torch.empty((n, 3), dtype=torch.float32, device=device)
+            pg.fused_launch(scene_tab, vpl_tab, tape, cfg, li, rays, tgt,
+                            "l2", radiance_out=rad_k)
+            launch = lambda c: pg.fused_launch(scene_tab, vpl_tab, tape, c,
+                                               li, rays, tgt, "l2")
+        r["radiance"] = protocol(rad_k, plain)
+        r["plain_same_bits_carrier_off"] = torch.equal(plain, plain_off)
+        first, second = launch(cfg), launch(cfg)
+        off = launch(cfg0)
+        torch.cuda.synchronize()
+        r["two_launches_same_bits"] = all(
+            torch.equal(a, b) for a, b in zip(first, second))
+        # The scene table's gradient (on the occluder scene the
+        # occluder's p, its last row) and the VPL table's.
+        (dtab, dvpl), (dtab_off, dvpl_off) = (
+            (out[1], out[2]) if fused else (out[0], out[1])
+            for out in (first, off))
+        if path == SIMPLE:
+            dtab, dtab_off = dtab[-1, 1:4], dtab_off[-1, 1:4]
+            r["occluder_dp"] = {"vis": dtab.tolist(),
+                                "off": dtab_off.tolist()}
+            # The carrier's share of the occluder's p gradient: above
+            # GRAD_MAX_REL, a kernel that dropped the carrier would fail
+            # the gates.
+            r["carrier_share"] = float(((dtab - dtab_off).abs()
+                                        / dtab.abs().clamp(min=1e-30))
+                                       .max())
+        r["carrier_moves_gradient"] = not torch.equal(dtab, dtab_off)
+        if path == SIMPLE and cfg.use_vpl:
+            r["carrier_moves_vpl_gradient"] = not torch.equal(dvpl,
+                                                              dvpl_off)
+        r["fused"] = fused
+        results[name] = r
+    inst = _grad_instantiations(ptxas)
+    phase("carrier_vs_plain", max_depth=7, vis_grad_tau=VIS_TAU,
+          results=results, ptxas=inst)
+    for name, r in results.items():
+        label = f"carrier_vs_plain {name}"
+        check(r["two_launches_same_bits"], f"{label}: two launches differ")
+        check(r["plain_same_bits_carrier_off"],
+              f"{label}: the carrier moved the plain radiance")
+        check(r["radiance"]["exact_frac"] == 1.0,
+              f"{label}: radiance not bit for bit {r['radiance']}")
+        err = _check_diff(label, r)
+        # Cornell's walls are spheres that hold every shadow segment, so
+        # soft visibility is 0 there and the carrier adds nothing (as in
+        # the JAX package); the occluder scene holds no segment. The
+        # error reported for a carrier kernel is the occluder cases', where
+        # a wrong carrier would show.
+        if name.startswith("occluder"):
+            check(r["carrier_moves_gradient"]
+                  and r.get("carrier_moves_vpl_gradient", True)
+                  and r["carrier_share"] > GRAD_MAX_REL,
+                  f"{label}: the carrier left the gradient as it was "
+                  f"(share {r['carrier_share']:.2e})")
+            kind = "fused" if r["fused"] else "grad"
+            worst[kind] = max(worst[kind], err)
+    check(set(inst) == {"grad_kernel", "fused_kernel", "grad_kernel_vis",
+                        "fused_kernel_vis"}
+          and all(v.get("spill_stores", 1) == 0
+                  and v.get("spill_loads", 1) == 0 for v in inst.values())
+          and all(inst[k].get("registers") == regs
+                  for k, regs in CARRIER_OFF_REGISTERS.items()),
+          f"grad_kernel instantiations {inst}: want no spills, and the "
+          f"carrier-off registers {CARRIER_OFF_REGISTERS}")
+    return worst
+
+
+def phase_carrier_train(train: dict, ctrain: dict) -> dict:
+    """The carriers on the training paths, through the entry points a user
+    calls: (a) the fused step at Cornell 512x512 with the visibility
+    carrier, 20 steps, beside the carrier-off step; (b) the step with the
+    silhouette carrier (spp 1, l2: `trace_kernel` and `grad_kernel` and
+    the carrier in PyTorch), 5 steps; (c) `InverseRenderer` with both
+    carriers and tau annealing, 8 steps at spp 4 (the loss falls); (d)
+    complex.scn's re-walk with the visibility carrier at 128x96 against
+    plain full-scan autograd."""
+    from gpu_bidirectional_raytracer_tpu_torch import rng
+    from gpu_bidirectional_raytracer_tpu_torch.core.types import Camera
+    from gpu_bidirectional_raytracer_tpu_torch.diff import gradients as G
+    from gpu_bidirectional_raytracer_tpu_torch.ops import pallas_trace as ops
+
+    scene, cam, cfg, li, key = (train["scene"], train["cam"], train["cfg"],
+                                train["li"], train["key"])
+    w, h = TRAIN_W, TRAIN_H
+    black = torch.zeros((h, w, 3), dtype=torch.float32, device=scene.device)
+    vis_cfg = dataclasses.replace(cfg, vis_grad_tau=VIS_TAU)
+    sil_cfg = dataclasses.replace(cfg, sil_grad_tau=SIL_TAU)
+
+    def stepper(c):
+        return lambda i: G.render_loss_grad(
+            scene, cam, rng.fold_in(key, i), black, c, w, h, li, spp=1,
+            loss="l2", backend="auto")
+
+    legs = {"fused_off": _timed_steps(stepper(cfg), TRAIN_STEPS),
+            "fused_vis": _timed_steps(stepper(vis_cfg), TRAIN_STEPS),
+            "sil": _timed_steps(stepper(sil_cfg), SIL_STEPS)}
+
+    # (c) The fitter: the left wall's albedo, as train_path's, with both
+    # carriers annealed.
+    target_img = G.render_radiance(scene, cam, key, cfg, w, h, li, spp=4)
+    c = scene.c.clone()
+    c[0] = torch.tensor([0.5, 0.5, 0.5], device=c.device)
+    fit_cfg = dataclasses.replace(cfg, vis_grad_tau=VIS_TAU,
+                                  sil_grad_tau=SIL_TAU)
+    inv = G.InverseRenderer(scene=scene.replace(c=c), cam=cam,
+                            target=target_img, cfg=fit_cfg, width=w,
+                            height=h, lr=0.05, spp=4, optimize=("c",),
+                            resample=False, loss="l2",
+                            tau_anneal=TAU_ANNEAL,
+                            anneal_steps=ANNEAL_STEPS)
+    # Its first step (threefry key, both carriers at their first taus)
+    # through the kernels against its plain autograd route, at 512x512.
+    first_cfg = inv._step_cfg()
+
+    def first_step(route):
+        return G.render_loss_grad(
+            inv.scene, inv.cam, rng.make_key(inv.seed, "threefry"),
+            inv.target, first_cfg, inv.width, inv.height, inv.light_idx,
+            inv.spp, inv.loss, route)
+
+    ops.reset_launches()
+    lk, gk = first_step(inv.backend)
+    torch.cuda.synchronize()
+    first_launches = dict(ops.LAUNCHES)
+    lp, gp = first_step("xla")
+    torch.cuda.synchronize()
+    params = ("p", "rad", "e", "c")
+    fit_vs_plain = {
+        "launches": first_launches,
+        "loss_rel": abs(float(lk) - float(lp)) / abs(float(lp)),
+        "grads": {k: grad_check(getattr(gk, k), getattr(gp, k))
+                  for k in params}}
+    del gk, gp
+    torch.cuda.empty_cache()
+    taus = [first_cfg.vis_grad_tau]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    t = time.perf_counter()
+    losses = []
+    for _ in range(FIT_STEPS):
+        losses.append(inv.step())
+        taus.append(inv._step_cfg().vis_grad_tau)
+    torch.cuda.synchronize()
+    fit = {"steps": FIT_STEPS, "losses": losses,
+           "s_per_step": (time.perf_counter() - t) / FIT_STEPS,
+           "launches": dict(ops.LAUNCHES), "vis_tau_by_step": taus,
+           "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+           "first_step_vs_plain": fit_vs_plain}
+
+    # (d) complex.scn: the re-walk carries the carrier through NEE with
+    # given occlusion; plain soft_visibility builds [N * slots, S, 3] per
+    # depth, so this runs at 128x96 (the re-walk keeps every depth).
+    cscene, ccfg, cli = ctrain["scene"], ctrain["cfg"], ctrain["li"]
+    ccfg = dataclasses.replace(ccfg, vis_grad_tau=VIS_TAU)
+    gw, gh = COMPLEX_GRAD_W, COMPLEX_GRAD_H
+    orig, target, _ = _scene_at(COMPLEX)
+    gcam = Camera.make(orig, target, gw, gh)
+    gblack = torch.zeros((gh, gw, 3), dtype=torch.float32,
+                         device=cscene.device)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ops.reset_launches()
+    t = time.perf_counter()
+    lk, gk = G.render_loss_grad(cscene, gcam, key, gblack, ccfg, gw, gh,
+                                cli, 1, "l2", "pallas")
+    torch.cuda.synchronize()
+    rewalk_s = time.perf_counter() - t
+    rewalk_launches = dict(ops.LAUNCHES)
+    rewalk_peak = torch.cuda.max_memory_allocated() / 2**30
+    torch.cuda.reset_peak_memory_stats()
+    lp, gp = G.render_loss_grad(cscene, gcam, key, gblack, ccfg, gw, gh,
+                                cli, 1, "l2", "xla")
+    torch.cuda.synchronize()
+    complex_vis = {
+        "width": gw, "height": gh, "launches": rewalk_launches,
+        "s_step": rewalk_s, "peak_gib": rewalk_peak,
+        "plain_peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+        "loss_rel": abs(float(lk) - float(lp)) / abs(float(lp)),
+        "grads": {k: grad_check(getattr(gk, k), getattr(gp, k))
+                  for k in params}}
+    del gk, gp
+    torch.cuda.empty_cache()
+
+    phase("carrier_train", width=w, height=h, vis_grad_tau=VIS_TAU,
+          sil_grad_tau=SIL_TAU, legs=legs, fit=fit, complex_vis=complex_vis)
+    check(legs["fused_off"]["launches"] == counts(fused_kernel=TRAIN_STEPS),
+          f"carrier-off step launches {legs['fused_off']['launches']}")
+    check(legs["fused_vis"]["launches"]
+          == counts(fused_kernel_vis=TRAIN_STEPS),
+          f"carrier step launches {legs['fused_vis']['launches']}")
+    check(legs["sil"]["launches"]
+          == counts(trace_kernel=SIL_STEPS, grad_kernel=SIL_STEPS),
+          f"silhouette step launches {legs['sil']['launches']}")
+    per_step = 4 * FIT_STEPS
+    check(fit["launches"] == counts(trace_kernel=per_step,
+                                    grad_kernel_vis=per_step),
+          f"carrier fitter launches {fit['launches']}")
+    check(all(math.isfinite(x) for x in losses) and losses[-1] < losses[0],
+          f"carrier fitter loss did not fall: {losses}")
+    check(taus[0] == VIS_TAU and taus[-1] == VIS_TAU * TAU_ANNEAL,
+          f"carrier fitter taus {taus}")
+    check(fit_vs_plain["launches"] == counts(trace_kernel=4,
+                                             grad_kernel_vis=4),
+          f"carrier fitter's first step launches {fit_vs_plain['launches']}")
+    check(fit_vs_plain["loss_rel"] <= LOSS_RTOL,
+          f"carrier fitter's first step vs plain: loss off by "
+          f"{fit_vs_plain['loss_rel']:.2e}")
+    for k, gr in fit_vs_plain["grads"].items():
+        check(gr["ok"], f"carrier fitter's first step vs plain: d{k} "
+                        f"outside the tolerance ({gr})")
+    check(rewalk_launches == counts(aux_kernel=ccfg.max_depth),
+          f"complex carrier step launches {rewalk_launches}")
+    check(complex_vis["loss_rel"] <= LOSS_RTOL,
+          f"complex carrier step: loss off by {complex_vis['loss_rel']:.2e}")
+    for k, gr in complex_vis["grads"].items():
+        check(gr["ok"], f"complex carrier step: d{k} outside the tolerance "
+                        f"({gr})")
+    return {"step_launches": legs["fused_vis"]["launches"],
+            "fit_launches": fit["launches"]}
 
 
 def phase_train_path() -> dict:
@@ -1685,7 +2112,7 @@ def _bound(ops_total: int, bytes_total: int) -> dict:
 def phase_kernels(main: dict, train: dict, max_abs_err: float,
                   grad_err: float, device, tape_res: dict, bounce: dict,
                   cpath: dict, ctrain: dict, scan: dict,
-                  spath: dict) -> None:
+                  spath: dict, carrier_err: dict, carrier: dict) -> None:
     """Per-kernel line: times at the main paths' shapes and the bounds."""
     from gpu_bidirectional_raytracer_tpu_torch import camera as cam_mod
     from gpu_bidirectional_raytracer_tpu_torch import rng
@@ -1763,6 +2190,16 @@ def phase_kernels(main: dict, train: dict, max_abs_err: float,
                                       vlp_index=0)
             return torch.autograd.grad((rad * cot).sum(), sl + vl)
 
+    # With the visibility carrier: the kVis instantiations on the same
+    # tables, their work counted by the plain tracer with the carrier on.
+    vis_cfg = dataclasses.replace(cfg, vis_grad_tau=VIS_TAU)
+    vis_grad_ms = cuda_ms(lambda: pg.grad_launch(
+        scene_tab, vpl_tab, tape, vis_cfg, li, rays_t, cot), reps=10)
+    vis_fused_ms = cuda_ms(lambda: pg.fused_launch(
+        scene_tab, vpl_tab, tape, vis_cfg, li, rays_t, black, "l2"),
+        reps=10)
+    _, st_vis = path_tracer.trace(scene, vis_cfg, li, rays_t, key, 0,
+                                  vpls=vpls_t, vlp_index=0, with_stats=True)
     grad_plain_ms = cuda_ms(grad_plain, reps=3, warmup=1)
     fused_plain_ms = cuda_ms(lambda: pg.loss_grad_plain(
         scene, cfg, li, rays_t, key, 0, black, vpls=vpls_t, vlp_index=0),
@@ -1779,6 +2216,13 @@ def phase_kernels(main: dict, train: dict, max_abs_err: float,
     grad_bytes = common_bytes + 12 * n + 24 * n      # cotangent, ray grads
     fused_bytes = common_bytes + 12 * n + 4 * n_blocks   # targets, loss
     work = {**st, "fp32_ops": adj_ops}
+    vis_ops = (_forward_ops(st_vis, s)
+               + st_vis["hit_segments"] * OPS_SEGMENT_ADJ
+               + st_vis["diffuse_vertices"] * OPS_SCATTER_ADJ
+               + st_vis["shadow_lit"] * OPS_SHADOW_ADJ
+               + st_vis["carrier_terms"] * OPS_CARRIER_TERM)
+    vis_work = {"carrier_terms": st_vis["carrier_terms"],
+                "fp32_ops": vis_ops, "vis_grad_tau": VIS_TAU}
     grad_src = "gpu_bidirectional_raytracer_tpu_torch/csrc/grad_kernel.cu"
     rows += [{
         "name": "grad_kernel",
@@ -1792,6 +2236,11 @@ def phase_kernels(main: dict, train: dict, max_abs_err: float,
         **_bound(adj_ops, grad_bytes),
         "library_ms": None,
         "work": {**work, "bytes": grad_bytes},
+        "vis_ms": vis_grad_ms,
+        "vis_launches": carrier["fit_launches"]["grad_kernel_vis"],
+        "vis_bound_ms": _bound(vis_ops, grad_bytes)["bound_ms"],
+        "vis_max_abs_err": carrier_err["grad"],
+        "vis_work": vis_work,
     }, {
         "name": "fused_kernel",
         "route": "cuda",
@@ -1804,6 +2253,11 @@ def phase_kernels(main: dict, train: dict, max_abs_err: float,
         **_bound(adj_ops, fused_bytes),
         "library_ms": None,
         "work": {**work, "bytes": fused_bytes},
+        "vis_ms": vis_fused_ms,
+        "vis_launches": carrier["step_launches"]["fused_kernel_vis"],
+        "vis_bound_ms": _bound(vis_ops, fused_bytes)["bound_ms"],
+        "vis_max_abs_err": carrier_err["fused"],
+        "vis_work": vis_work,
     }]
     rows += _bounce_rows(bounce, cpath, ctrain, device)
     rows += _scan_rows(scan, spath)
@@ -1926,9 +2380,10 @@ def main() -> int:
           count=torch.cuda.device_count(), torch=torch.__version__,
           cuda=torch.version.cuda, nvidia_smi=smi)
     try:
-        phase_build()
+        ptxas = phase_build()
         max_err = phase_kernel_vs_plain(device)
         grad_err = phase_grad_vs_plain(device)
+        carrier_err = phase_carrier_vs_plain(device, ptxas)
         tape_res = phase_tape_vs_plain(device)
         bounce_res = phase_bounce_vs_plain(device)
         scan_res = phase_scan_vs_plain(device)
@@ -1936,11 +2391,12 @@ def main() -> int:
         train_res = phase_train_path()
         cpath_res = phase_complex_path()
         ctrain_res = phase_complex_train()
+        carrier_res = phase_carrier_train(train_res, ctrain_res)
         spath_res = phase_scan_path()
         phase_mxu_train()
         phase_kernels(main_res, train_res, max_err, grad_err, device,
                       tape_res, bounce_res, cpath_res, ctrain_res, scan_res,
-                      spath_res)
+                      spath_res, carrier_err, carrier_res)
     except SmokeFailure as err:
         print(f"chip_smoke: FAILED: {err}", file=sys.stderr, flush=True)
         return 1

@@ -190,8 +190,9 @@ class IntegratorConfig:
     average ``(direct + vpl) / 2``. ``max_samples``: per-pixel sample cap.
     ``stale_vpl_window``: emulate the reference's non-wrapping VPL window.
     The gradient fields (``vis_grad_tau``, ``sil_grad_tau``,
-    ``sil_spec_depth``) are carried for parity; the forward path of this
-    package does not read them.
+    ``sil_spec_depth``) turn on and shape the straight-through gradient
+    carriers (`integrators.direct`, `diff.gradients`), whose values are 0:
+    they never change an image.
     """
 
     max_depth: int = MAX_EYE_DEPTH

@@ -5,7 +5,11 @@
 // cotangent in, gradients out; the backward of trace_pallas_diff) and
 // ::_fused_kernel (entry point fused_kernel_launch: targets in, the l2 or
 // log loss and its gradients out; trace_pallas_loss_grad). Both are one
-// kernel template; kFused selects the second.
+// kernel template; kFused selects the second, and kVis adds the branch of
+// the visibility carrier (vis_tau > 0; the TPU kernels' vis branch). Each
+// entry point launches the kVis instantiation when its vis_tau is
+// positive, and the carrier-off one, which compiles to the code without
+// the branch, otherwise.
 //
 // What it differentiates is the port's own forward, integrators/
 // path_tracer.py::trace as autograd sees it: hit ids, material and emitter
@@ -38,6 +42,20 @@
 // partials over blocks (torch.sum). Two launches on the same inputs give
 // the same bits.
 //
+// The visibility carrier (integrators/direct.py::_vis_carrier): the
+// forward is unchanged (its value is 0), and the reverse sweep adds, for
+// every light and VPL slot of a diffuse vertex whose sample faces it (lit
+// or occluded), the adjoint of stop(contrib) * soft, where soft =
+// prod_s (1 - edge_s endp_s gate_s) over the candidate blockers
+// (intersect.py::soft_visibility): a first pass over the blockers forms
+// the product, a second one runs each blocker's adjoint with the guarded
+// leave-one-out factor soft / (1 - blocked_s). The blocker's p and rad
+// gradients go to a per-thread accumulator (one row of 4 floats per
+// sphere, local memory, at most kVisSpheres rows), summed over the warp
+// once, in sphere order, after the reverse sweep; the segment's direction
+// and length adjoints go through the sample's segment into the hit point
+// and the light or VPL row.
+//
 // Bound: FP32 ALU, as the eye-path kernel: the forward sweep is that
 // kernel's work, and the reverse sweep adds per hit segment the adjoint of
 // one root and the shading, per cast shadow sample the adjoint of its
@@ -62,6 +80,8 @@ constexpr int kBlock = 128;
 constexpr int kWarps = kBlock / 32;
 constexpr int kMaxDepth = 16;   // ops/pallas_grad.py MAX_DEPTH
 constexpr int kLitWords = 4;    // 128 shadow slots (MAX_SHADOW_SLOTS)
+constexpr int kVisSpheres = 64;  // blocker rows of the carrier (SPHERE_LIMIT)
+constexpr float kEndpointFrac = 0.25f;  // intersect.ENDPOINT_TAU_FRACTION
 constexpr unsigned kFull = 0xffffffffu;
 
 struct Params {
@@ -83,6 +103,7 @@ struct Params {
   int combine_half, loss_kind;
   uint32_t lane_offset, lane_total;
   float emission_scale, light_gain, inv3n;
+  float vis_tau;          // > 0: the visibility carrier (kVis)
 };
 
 // One depth's entry state and detached facts.
@@ -452,7 +473,164 @@ __device__ __forceinline__ void vpl_adj(const Tables& T, int v,
   }
 }
 
-template <bool kFused>
+// One blocker's terms of soft_visibility for the segment from h along
+// the unit sd up to maxt: the silhouette sigmoid of width max(tau r,
+// 1e-6), the far-endpoint sigmoid of width we, and the hard near gate.
+struct Blocker {
+  float op[3], b, det, width, edge, endp, blocked;
+};
+
+__device__ __forceinline__ float sigmoid(float z) {
+  return 1.0f / (1.0f + expf(-z));
+}
+
+__device__ __forceinline__ void blocker(const float* sp, const float* h,
+                                        const float* sd, float maxt,
+                                        float tau, float we, Blocker& k) {
+  k.op[0] = sp[1] - h[0];
+  k.op[1] = sp[2] - h[1];
+  k.op[2] = sp[3] - h[2];
+  k.b = dot3(k.op[0], k.op[1], k.op[2], sd[0], sd[1], sd[2]);
+  const float opop = dot3(k.op[0], k.op[1], k.op[2], k.op[0], k.op[1],
+                          k.op[2]);
+  k.det = k.b * k.b - opop + sp[0] * sp[0];
+  k.width = fmaxf(tau * sp[0], 1e-6f);
+  k.edge = sigmoid(k.det / k.width);
+  const float t1 = k.b - sqrtf(fmaxf(k.det, kDetClamp));
+  k.endp = sigmoid((maxt - t1) / we);
+  k.blocked = k.b > kEps ? k.edge * k.endp : 0.0f;
+}
+
+// The carrier of one shadow segment: soft over the spheres that `skip`
+// does not leave out, then the adjoint of bsoft * soft. Adds the blocker
+// rows' (rad, p) gradients to acc, the hit point's to bh, and the
+// segment's direction and length adjoints to bsd and blen.
+template <typename Skip>
+__device__ __forceinline__ void soft_adj(const Tables& T, const float* h,
+                                         const float* sd, float maxt,
+                                         float bsoft, float tau, Skip skip,
+                                         float* acc, float* bh, float* bsd,
+                                         float& blen) {
+  const float we = fmaxf(kEndpointFrac * tau, 1e-6f);
+  float soft = 1.0f;
+#pragma unroll 1
+  for (int s = 0; s < T.n_spheres; ++s) {
+    const float* sp = T.scene + s * kCols;
+    if (skip(s, sp)) continue;
+    Blocker k;
+    blocker(sp, h, sd, maxt, tau, we, k);
+    soft = soft * (1.0f - k.blocked);
+  }
+#pragma unroll 1
+  for (int s = 0; s < T.n_spheres; ++s) {
+    const float* sp = T.scene + s * kCols;
+    if (skip(s, sp)) continue;
+    Blocker k;
+    blocker(sp, h, sd, maxt, tau, we, k);
+    if (!(k.b > kEps)) continue;   // the hard gate: no gradient
+    const float denom = 1.0f - k.blocked;
+    const float bblocked = denom > 1e-6f ? -bsoft * (soft / denom) : 0.0f;
+    const float dsq = k.det >= kDetClamp
+                          ? 0.5f / sqrtf(k.det) : 0.0f;
+    const float gd = k.endp * (1.0f - k.endp) / we;
+    // blocked = edge(det) * endp((maxt - b + sqrt(det)) / we)
+    const float bdet = bblocked * (k.edge * (1.0f - k.edge) / k.width *
+                                   k.endp + k.edge * gd * dsq);
+    const float bz = bblocked * k.edge * gd;
+    blen += bz;
+    // det = b^2 - op.op + r^2, b = op.sd, op = p - h
+    const float bb = 2.0f * k.b * bdet - bz;
+    float* row = acc + 4 * s;
+    row[0] += 2.0f * sp[0] * bdet;
+#pragma unroll
+    for (int i = 0; i < 3; ++i) {
+      const float bop = bb * sd[i] - 2.0f * k.op[i] * bdet;
+      row[1 + i] += bop;
+      bh[i] -= bop;
+      bsd[i] += bb * k.op[i];
+    }
+  }
+}
+
+// The carrier of light slot `slot` at a diffuse vertex: with its sample
+// facing the vertex, adds the adjoints of h to bh and of the light row's
+// (rad, p(3)) to g, and the blockers' to acc; the target light is left
+// out of its own soft product.
+__device__ __forceinline__ void light_vis_adj(const Tables& T, int row0,
+                                              int slot, uint32_t gl,
+                                              const Vertex& x,
+                                              const float* bdir, float tau,
+                                              float* acc, float* bh,
+                                              float* g) {
+  const int target = T.lights[slot];
+  const float* ls = T.scene + target * kCols;
+  float u[3];
+  light_dir(T, row0, slot, gl, u[0], u[1], u[2]);
+  const float lrad = ls[0];
+  const float q[3] = {ls[1] + lrad * u[0], ls[2] + lrad * u[1],
+                      ls[3] + lrad * u[2]};
+  float sd[3], len;
+  segment(q[0], q[1], q[2], x.h[0], x.h[1], x.h[2], sd[0], sd[1], sd[2],
+          len);
+  float wo = dot3(sd[0], sd[1], sd[2], u[0], u[1], u[2]);
+  const bool facing = wo <= 0.0f;
+  wo = -wo;
+  const float wi = dot3(sd[0], sd[1], sd[2], x.nl[0], x.nl[1], x.nl[2]);
+  if (!(facing && wi > 0.0f)) return;
+  const float scale = kFourPi * lrad * lrad * wi * wo /
+                      fmaxf(len * len, kTiny);
+  const float bsoft = dot3(bdir[0], bdir[1], bdir[2], ls[4], ls[5], ls[6]) *
+                      (T.light_gain * scale);
+  float bsd[3] = {0.0f, 0.0f, 0.0f}, blen = 0.0f;
+  soft_adj(T, x.h, sd, len - kEps, bsoft, tau,
+           [target](int s, const float*) { return s == target; }, acc, bh,
+           bsd, blen);
+  float bqh[3] = {0.0f, 0.0f, 0.0f};
+  segment_adj(q, x.h, bsd, blen, bqh);
+#pragma unroll
+  for (int i = 0; i < 3; ++i) {
+    bh[i] -= bqh[i];
+    g[1 + i] += bqh[i];
+  }
+  g[0] += dot3(bqh[0], bqh[1], bqh[2], u[0], u[1], u[2]);
+}
+
+// The carrier of VPL slot v (vacuum: emitters never block; the VPL's host
+// sphere, column 10, is left out): adds the adjoints of h to bh, of the
+// VPL's hp to g[0..3), and the blockers' to acc.
+__device__ __forceinline__ void vpl_vis_adj(const Tables& T, int v,
+                                            const Vertex& x, const float* bv,
+                                            float tau, float* acc, float* bh,
+                                            float* g) {
+  const float* vp = T.vpl + v * kCols;
+  if (!(vp[9] > 0.5f)) return;
+  float sd[3], len;
+  segment(vp[0], vp[1], vp[2], x.h[0], x.h[1], x.h[2], sd[0], sd[1], sd[2],
+          len);
+  float wo = dot3(sd[0], sd[1], sd[2], vp[6], vp[7], vp[8]);
+  const bool facing = wo <= 0.0f;
+  wo = -wo;
+  const float wi = dot3(sd[0], sd[1], sd[2], x.nl[0], x.nl[1], x.nl[2]);
+  if (!(facing && wi > 0.0f)) return;
+  const float bsoft = dot3(bv[0], bv[1], bv[2], vp[3], vp[4], vp[5]) *
+                      (wi * wo);
+  const float host = vp[10];
+  float bsd[3] = {0.0f, 0.0f, 0.0f}, blen = 0.0f;
+  soft_adj(T, x.h, sd, len - kEps, bsoft, tau,
+           [host](int s, const float* sp) {
+             return emissive(sp) || static_cast<float>(s) == host;
+           },
+           acc, bh, bsd, blen);
+  float bqh[3] = {0.0f, 0.0f, 0.0f};
+  segment_adj(vp, x.h, bsd, blen, bqh);
+#pragma unroll
+  for (int i = 0; i < 3; ++i) {
+    g[i] += bqh[i];
+    bh[i] -= bqh[i];
+  }
+}
+
+template <bool kFused, bool kVis>
 __global__ void __launch_bounds__(kBlock) grad_kernel(Params p) {
   extern __shared__ float smem[];
   const int rows = p.n_spheres + p.n_vpl;
@@ -552,6 +730,12 @@ __global__ void __launch_bounds__(kBlock) grad_kernel(Params p) {
   }
 
   // ---- reverse sweep: adjoints of the state after each depth
+  // The carrier's blocker rows (rad, p(3)) of this thread.
+  float vacc[kVis ? 4 * kVisSpheres : 1];
+  if (kVis) {
+#pragma unroll 1
+    for (int i = 0; i < 4 * p.n_spheres; ++i) vacc[i] = 0.0f;
+  }
   float bo[3] = {0.0f, 0.0f, 0.0f}, bd[3] = {0.0f, 0.0f, 0.0f};
   float btp[3] = {0.0f, 0.0f, 0.0f};
   const float half = (p.n_vpl > 0 && p.combine_half) ? 0.5f : 1.0f;
@@ -618,6 +802,8 @@ __global__ void __launch_bounds__(kBlock) grad_kernel(Params p) {
       float g[7] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
       if (nee && lit_bit(sv.lit, slot))
         light_adj(T, row0, slot, gl, x, bdir, ld, bh, bnl, g);
+      if (kVis && nee)
+        light_vis_adj(T, row0, slot, gl, x, bdir, p.vis_tau, vacc, bh, g);
       flush_row<7>(tab + lights[slot] * kCols, g);
     }
     if (p.n_vpl > 0) {
@@ -629,6 +815,7 @@ __global__ void __launch_bounds__(kBlock) grad_kernel(Params p) {
         float g[9] = {0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f, 0.0f};
         if (nee && lit_bit(sv.lit, p.n_lights + v))
           vpl_adj(T, v, x, bv, vsum, bh, bnl, g);
+        if (kVis && nee) vpl_vis_adj(T, v, x, bv, p.vis_tau, vacc, bh, g);
         flush_row<9>(tab + (p.n_spheres + v) * kCols, g);
       }
 #pragma unroll
@@ -681,6 +868,12 @@ __global__ void __launch_bounds__(kBlock) grad_kernel(Params p) {
     flush_by_id<10>(tab, act, act ? sv.hit : 0, gs);
   }
 
+  if (kVis) {   // the carrier's blocker rows, summed over the warp
+#pragma unroll 1
+    for (int s = 0; s < p.n_spheres; ++s)
+      flush_row<4>(tab + s * kCols, vacc + 4 * s);
+  }
+
   if (valid && p.drays_o != nullptr) {
 #pragma unroll
     for (int i = 0; i < 3; ++i) {
@@ -712,22 +905,25 @@ __global__ void __launch_bounds__(kBlock) grad_kernel(Params p) {
   }
 }
 
-template <bool kFused>
+template <bool kFused, bool kVis>
 int launch(const Params& p, void* stream) {
   if (p.n <= 0) return 0;
+  if (kVis && p.n_spheres > kVisSpheres)
+    return static_cast<int>(cudaErrorInvalidValue);
   const int rows = p.n_spheres + p.n_vpl;
   const size_t smem = sizeof(float) * rows * kCols +
                       sizeof(uint32_t) * (4 * p.n_rows + p.n_lights) +
                       sizeof(float) * (kWarps * rows * kCols + kWarps);
   if (smem > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
-        grad_kernel<kFused>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        grad_kernel<kFused, kVis>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize,
         static_cast<int>(smem));
     if (err != cudaSuccess) return static_cast<int>(err);
   }
   const int grid = (p.n + kBlock - 1) / kBlock;
-  grad_kernel<kFused><<<grid, kBlock, smem,
-                        static_cast<cudaStream_t>(stream)>>>(p);
+  grad_kernel<kFused, kVis><<<grid, kBlock, smem,
+                              static_cast<cudaStream_t>(stream)>>>(p);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -737,7 +933,7 @@ Params common(const void* scene, int n_spheres, const void* vpl, int n_vpl,
               const void* rays_d, int n, int max_depth, int n_light_slots,
               int combine_half, unsigned int lane_offset,
               unsigned int lane_total, float emission_scale,
-              float light_gain) {
+              float light_gain, float vis_tau) {
   Params p{};
   p.scene = static_cast<const float*>(scene);
   p.vpl = static_cast<const float*>(vpl);
@@ -757,7 +953,14 @@ Params common(const void* scene, int n_spheres, const void* vpl, int n_vpl,
   p.lane_total = lane_total;
   p.emission_scale = emission_scale;
   p.light_gain = light_gain;
+  p.vis_tau = vis_tau;
   return p;
+}
+
+template <bool kFused>
+int launch_any(const Params& p, void* stream) {
+  return p.vis_tau > 0.0f ? launch<kFused, true>(p, stream)
+                          : launch<kFused, false>(p, stream);
 }
 
 }  // namespace
@@ -768,18 +971,19 @@ extern "C" int grad_kernel_launch(
     const void* rays_o,
     const void* rays_d, int n, int max_depth, int n_light_slots,
     int combine_half, unsigned int lane_offset, unsigned int lane_total,
-    float emission_scale, float light_gain, const void* cot, void* dscene,
-    void* dvpl, void* drays_o, void* drays_d, void* stream) {
+    float emission_scale, float light_gain, float vis_tau, const void* cot,
+    void* dscene, void* dvpl, void* drays_o, void* drays_d, void* stream) {
   Params p = common(scene, n_spheres, vpl, n_vpl, keys, n_rows, tape,
                     n_lights,
                     rays_o, rays_d, n, max_depth, n_light_slots, combine_half,
-                    lane_offset, lane_total, emission_scale, light_gain);
+                    lane_offset, lane_total, emission_scale, light_gain,
+                    vis_tau);
   p.cot = static_cast<const float*>(cot);
   p.dscene = static_cast<float*>(dscene);
   p.dvpl = static_cast<float*>(dvpl);
   p.drays_o = static_cast<float*>(drays_o);
   p.drays_d = static_cast<float*>(drays_d);
-  return launch<false>(p, stream);
+  return launch_any<false>(p, stream);
 }
 
 extern "C" int fused_kernel_launch(
@@ -788,13 +992,14 @@ extern "C" int fused_kernel_launch(
     const void* rays_o,
     const void* rays_d, int n, int max_depth, int n_light_slots,
     int combine_half, unsigned int lane_offset, unsigned int lane_total,
-    float emission_scale, float light_gain, const void* target,
-    int loss_kind, float inv3n, void* dscene, void* dvpl, void* loss_part,
-    void* rad_out, void* stream) {
+    float emission_scale, float light_gain, float vis_tau,
+    const void* target, int loss_kind, float inv3n, void* dscene, void* dvpl,
+    void* loss_part, void* rad_out, void* stream) {
   Params p = common(scene, n_spheres, vpl, n_vpl, keys, n_rows, tape,
                     n_lights,
                     rays_o, rays_d, n, max_depth, n_light_slots, combine_half,
-                    lane_offset, lane_total, emission_scale, light_gain);
+                    lane_offset, lane_total, emission_scale, light_gain,
+                    vis_tau);
   p.target = static_cast<const float*>(target);
   p.loss_kind = loss_kind;
   p.inv3n = inv3n;
@@ -802,5 +1007,5 @@ extern "C" int fused_kernel_launch(
   p.dvpl = static_cast<float*>(dvpl);
   p.loss_part = static_cast<float*>(loss_part);
   p.rad_out = static_cast<float*>(rad_out);
-  return launch<true>(p, stream);
+  return launch_any<true>(p, stream);
 }

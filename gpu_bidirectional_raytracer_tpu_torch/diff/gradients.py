@@ -1,8 +1,18 @@
 """Differentiable rendering: gradients of images w.r.t. scene parameters.
 
 Port of ``gpu_bidirectional_raytracer_tpu/diff/gradients.py`` on torch
-autograd, without the two straight-through carriers (``vis_grad_tau``,
-``sil_grad_tau``), which are not ported yet and raise.
+autograd, with its two straight-through carriers, whose values are
+exactly zero and whose gradients carry what the detached estimator
+misses:
+
+- ``cfg.vis_grad_tau > 0``: cast shadows. Every NEE and VPL term adds
+  ``stop(contrib) * d soft_visibility`` (`integrators.direct`); inside the
+  tracer, so the plain tracer, the re-walk and the adjoint kernels carry
+  it.
+- ``cfg.sil_grad_tau > 0``: the coverage of the sphere a ray hits first,
+  on the primary ray and along specular chains up to
+  ``cfg.sil_spec_depth`` bounces (`_silhouette_carrier`); outside the
+  tracer, after whichever route produced the radiance.
 
 Differentiation policy (the JAX package's): discrete structure is stopped
 (hit ids, material and emitter masks, facing tests, occlusion, the Fresnel
@@ -35,13 +45,20 @@ from torch import Tensor
 
 from gpu_bidirectional_raytracer_tpu_torch import camera as cam_mod
 from gpu_bidirectional_raytracer_tpu_torch import rng
+from gpu_bidirectional_raytracer_tpu_torch.core import vecmath as vm
 from gpu_bidirectional_raytracer_tpu_torch.core.types import (
+    DIFF,
+    REFR,
+    SPEC,
     Camera,
     IntegratorConfig,
     Scene,
 )
+from gpu_bidirectional_raytracer_tpu_torch.integrators import direct as nee
+from gpu_bidirectional_raytracer_tpu_torch.integrators import intersect as isect
 from gpu_bidirectional_raytracer_tpu_torch.integrators import light_tracer
 from gpu_bidirectional_raytracer_tpu_torch.integrators import path_tracer
+from gpu_bidirectional_raytracer_tpu_torch.integrators.bsdf import _NC, _NT
 from gpu_bidirectional_raytracer_tpu_torch.integrators.direct import (
     static_light_indices,
 )
@@ -57,6 +74,162 @@ from gpu_bidirectional_raytracer_tpu_torch.ops.pallas_grad import (  # noqa: F40
 )
 
 _BACKENDS = ("auto", "pallas", "xla", "mxu")
+
+
+def _silhouette_carrier(scene: Scene, cfg: IntegratorConfig,
+                        light_idx: tuple[int, ...], o: Tensor, d: Tensor,
+                        rad: Tensor, key: rng.Key, sample: int,
+                        lane_offset: int | None = None,
+                        lane_total: int | None = None) -> Tensor:
+    """Zero-primal silhouette carrier ``[N, 3]`` of the rays ``(o, d)``
+    whose traced radiance is ``rad`` (JAX's `_silhouette_carrier`).
+
+    Per leg, the pixel's coverage by the sphere its ray hits first is
+    relaxed to ``sigmoid(det / max(tau r, 1e-6))`` (``det`` the ray's
+    discriminant of that sphere, differentiable; the width stopped), and
+    the carrier is ``x - x.detach()`` with ``x = 2 stop(L_fg - L_bg) *
+    cov``: ``L_fg`` the leg's radiance, ``L_bg`` a value-only estimate of
+    what the ray would see without the sphere (emission plus one NEE at
+    the second-nearest hit, on the depth's ``LIGHT_UV`` tape, without the
+    visibility carrier); the 2 makes up for the band's outer half, which
+    no lane hits.
+
+    The primary leg takes ``L_fg = rad``. The walk then follows specular
+    chains up to ``cfg.sil_spec_depth`` bounces: a mirror reflects, glass
+    refracts on the transmission branch with the stopped Fresnel weight
+    ``1 - Re`` (total internal reflection mirrors), each leg shading its
+    own first hit value-only for ``L_fg``. At a primary glass hit a second
+    chain follows the Fresnel reflection with the weight ``Re``. Hit ids,
+    materials, the branch and the weights are stopped; the chain's
+    geometry (the root, normal and directions of each hit sphere) is
+    differentiable, so a mirror's or a lens's own motion moves what it
+    shows.
+    """
+    n = o.shape[0]
+    scene0 = scene.replace(**{k: getattr(scene, k).detach()
+                              for k in ("rad", "p", "e", "c")})
+    no_vis = dataclasses.replace(cfg, vis_grad_tau=0.0)
+    n_slots = max(len(light_idx), 1)
+
+    def shade_value_only(hp_s, t_hit, hid_s, d_l, depth):
+        """Emission plus NEE at a diffuse hit, value only: the L_fg/L_bg
+        estimate (indirect light there is left out)."""
+        p_s, e_s, c_s, refl_s = isect.gather_sphere_attrs(scene0, hid_s)
+        normal_s = vm.norm(hp_s - p_s, eps=1e-20)
+        dp_s = vm.dot(normal_s, d_l)
+        nl_s = vm.smul(torch.where(dp_s > 0.0, -1.0, 1.0), normal_s)
+        emit_s = cfg.emission_scale * torch.abs(dp_s)[:, None] * e_s
+        if light_idx:
+            light_u = rng.site_uniforms(
+                key, sample, depth, rng.LIGHT_UV, 2 * n_slots, n,
+                device=o.device, lane_offset=lane_offset,
+                lane_total=lane_total).reshape(n_slots, 2, n)
+            ld_s = nee.sample_direct(scene0, no_vis, light_idx, hp_s, nl_s,
+                                     light_u)
+        else:
+            ld_s = torch.zeros_like(hp_s)
+        lit = emit_s + torch.where((refl_s == DIFF)[:, None], c_s * ld_s,
+                                   torch.zeros_like(ld_s))
+        return torch.where((t_hit < isect._BIG)[:, None], lit,
+                           torch.zeros_like(lit))
+
+    def leg(o_l, d_l, active, tint, depth, use_rad):
+        """One coverage leg along ``(o_l, d_l)``: ``active [N]`` the lanes
+        it applies to, ``tint [N, 3]`` the stopped throughput from the
+        camera, ``depth`` the tape row of its NEE."""
+        with torch.no_grad():
+            ts = isect.sphere_distances(scene0, o_l, d_l)
+            hit, t1, hid = isect.nearest_of(ts)
+            others = torch.where(
+                torch.arange(ts.shape[1], device=ts.device)[None, :]
+                == hid[:, None], torch.zeros_like(ts), ts)
+            _, t2, hid2 = isect.nearest_of(others)
+            hp2 = o_l + torch.where(t2 < isect._BIG, t2, 1.0)[:, None] * d_l
+            l_bg = shade_value_only(hp2, t2, hid2, d_l, depth) * tint
+            if use_rad:
+                l_fg = rad.detach()
+            else:
+                hp1 = o_l + torch.where(hit, t1, 1.0)[:, None] * d_l
+                l_fg = shade_value_only(hp1, t1, hid, d_l, depth) * tint
+            delta = l_fg - l_bg
+        p_h, _, _, _, r_h = isect.gather_sphere_attrs(scene, hid,
+                                                      with_rad=True)
+        op = p_h - o_l
+        b = vm.dot(op, d_l)
+        det = b * b - vm.dot(op, op) + r_h * r_h
+        width = torch.clamp(cfg.sil_grad_tau * r_h, min=1e-6).detach()
+        cov = torch.sigmoid(det / width)
+        carrier = 2.0 * delta * (cov * hit.to(cov.dtype) * active)[:, None]
+        return carrier - carrier.detach()
+
+    def advance(o_l, d_l):
+        """One specular continuation: the hit point, the next direction,
+        the mirror direction, whether the chain goes on, the stopped tint
+        factor, whether a Fresnel reflection spawns here, its weight and
+        the albedo."""
+        with torch.no_grad():
+            hit_k, _, hid_k = isect.intersect(scene0, o_l, d_l)
+        p_k, _, c_k, refl_k, r_sph = isect.gather_sphere_attrs(
+            scene, hid_k, with_rad=True)
+        c_k = c_k.detach()
+        t_k = isect.sphere_root(o_l, d_l, p_k, r_sph)
+        hp_k = o_l + torch.where(hit_k, t_k, 1.0)[:, None] * d_l
+        n_k = vm.norm(hp_k - p_k, eps=1e-20)
+        r_k = d_l - (2.0 * vm.dot(n_k, d_l))[:, None] * n_k
+        into = vm.dot(n_k, d_l) < 0.0
+        sign = torch.where(into, 1.0, -1.0)
+        nl_k = vm.smul(sign, n_k)
+        nnt = torch.where(into, _NC / _NT, _NT / _NC)
+        ddn = vm.dot(d_l, nl_k)
+        cos2t = 1.0 - nnt * nnt * (1.0 - ddn * ddn)
+        tir = cos2t < 0.0
+        safe_cos = torch.where(tir, 1.0, torch.clamp(cos2t, min=1e-12))
+        kk = sign * (ddn * nnt + torch.where(tir, 0.0, torch.sqrt(safe_cos)))
+        t_dir = vm.norm(nnt[:, None] * d_l - kk[:, None] * n_k, eps=1e-20)
+        r0 = ((_NT - _NC) / (_NT + _NC)) ** 2
+        c1 = 1.0 - torch.where(into, -ddn, vm.dot(t_dir, n_k))
+        re = (r0 + (1.0 - r0) * c1 ** 5).detach()
+        is_spec, is_refr = refl_k == SPEC, refl_k == REFR
+        take_refl = is_spec | (is_refr & tir)
+        next_d = torch.where(take_refl[:, None], r_k, t_dir)
+        trans_w = torch.where(is_refr & torch.logical_not(tir), 1.0 - re,
+                              1.0)
+        return dict(
+            hp=hp_k, next_d=next_d, r_k=r_k,
+            cont=(hit_k & (is_spec | is_refr)).to(o.dtype),
+            tint_mul=c_k * trans_w[:, None],
+            refl_spawn=(hit_k & is_refr
+                        & torch.logical_not(tir)).to(o.dtype),
+            re=re, c_k=c_k)
+
+    o_l, d_l = o, d
+    active = torch.ones((n,), dtype=o.dtype, device=o.device)
+    tint = torch.ones((n, 3), dtype=o.dtype, device=o.device)
+    out = torch.zeros((n, 3), dtype=o.dtype, device=o.device)
+    depth_cap = min(max(int(cfg.sil_spec_depth), 0), cfg.max_depth - 1)
+    reflected = None
+    for k in range(depth_cap + 1):
+        out = out + leg(o_l, d_l, active, tint, k, use_rad=k == 0)
+        if k == depth_cap:
+            break
+        adv = advance(o_l, d_l)
+        if k == 0:   # the Fresnel reflection of a primary glass hit
+            reflected = (adv["hp"], adv["r_k"], active * adv["refl_spawn"],
+                         tint * adv["c_k"] * adv["re"][:, None])
+        active = active * adv["cont"]
+        tint = tint * adv["tint_mul"]
+        o_l, d_l = adv["hp"], adv["next_d"]
+    if reflected is not None:
+        o_l, d_l, active, tint = reflected
+        for k in range(1, depth_cap + 1):
+            out = out + leg(o_l, d_l, active, tint, k, use_rad=False)
+            if k == depth_cap:
+                break
+            adv = advance(o_l, d_l)
+            active = active * adv["cont"]
+            tint = tint * adv["tint_mul"]
+            o_l, d_l = adv["hp"], adv["next_d"]
+    return out
 
 
 def _resolve_backend(device_type: str, backend: str) -> str:
@@ -104,8 +277,8 @@ def render_radiance_lanes(scene: Scene, cam: Camera, key: rng.Key,
     banded render equals the whole one. With VPLs the light subpaths are
     re-traced inside the graph each sample, and the gather window is the
     fresh ``[0, max_vlp)`` block. With the kernels, more than 64 spheres
-    take `trace_bounce_diff`."""
-    pallas_grad.check_supported(cfg)
+    take `trace_bounce_diff`. With ``cfg.sil_grad_tau > 0`` each sample
+    adds `_silhouette_carrier` to its radiance, in the same lane window."""
     route = radiance_route(scene.device.type, scene.num_spheres, backend)
     tracer = {"plain": functools.partial(
                   path_tracer.trace, remat=True,
@@ -136,9 +309,14 @@ def render_radiance_lanes(scene: Scene, cam: Camera, key: rng.Key,
             vlp_index = 0
         else:
             vpls, vlp_index = None, None
-        acc = acc + tracer(scene, cfg, light_idx, rays, key, s, vpls=vpls,
-                           vlp_index=vlp_index, lane_offset=lane_offset,
-                           lane_total=lane_total)
+        rad = tracer(scene, cfg, light_idx, rays, key, s, vpls=vpls,
+                     vlp_index=vlp_index, lane_offset=lane_offset,
+                     lane_total=lane_total)
+        if cfg.sil_grad_tau > 0.0:
+            rad = rad + _silhouette_carrier(
+                scene, cfg, light_idx, rays.o, rays.d, rad, key, s,
+                lane_offset=lane_offset, lane_total=lane_total)
+        acc = acc + rad
     return acc / spp
 
 
@@ -285,10 +463,10 @@ class InverseRenderer:
     ``backend="auto"`` follows JAX's rule (`fitter_backend`): the kernels
     on the card up to 64 spheres, the plain tracer above that.
 
-    The JAX fitter's carrier-tau annealing (``tau_anneal``,
-    ``anneal_steps``, ``anneal_stages``) scales ``sil_grad_tau`` and
-    ``vis_grad_tau`` only; it comes with those gradient carriers, which
-    are not ported yet.
+    Carrier-tau annealing: the carriers' bias scales with their sigmoid
+    width, so a fit can shrink ``sil_grad_tau`` and ``vis_grad_tau`` by
+    ``tau_anneal`` (final over initial) over ``anneal_steps`` steps, in
+    ``anneal_stages`` discrete stages (`_step_cfg`).
     """
 
     scene: Scene
@@ -309,6 +487,9 @@ class InverseRenderer:
     loss: str | None = None  # default: 'l2_unbiased' when resampling,
                              # 'l2' on a fixed tape
     backend: str = "auto"    # 'auto': `fitter_backend`
+    tau_anneal: float = 1.0     # 1.0 = off
+    anneal_steps: int = 0
+    anneal_stages: int = 4
     # Plateau early stopping: after `patience` steps with less than
     # `min_improve` relative improvement on the best loss, `should_stop`.
     patience: int = 0           # 0 = off
@@ -330,6 +511,17 @@ class InverseRenderer:
     def _params(self) -> dict[str, Tensor]:
         return {k: getattr(self.scene, k) for k in self.optimize}
 
+    def _step_cfg(self) -> IntegratorConfig:
+        """This step's config under the staged tau annealing."""
+        if self.tau_anneal == 1.0 or self.anneal_steps <= 0:
+            return self.cfg
+        frac = min(self._step / self.anneal_steps, 1.0)
+        stages = max(self.anneal_stages - 1, 1)
+        scale = self.tau_anneal ** (round(frac * stages) / stages)
+        return dataclasses.replace(
+            self.cfg, sil_grad_tau=self.cfg.sil_grad_tau * scale,
+            vis_grad_tau=self.cfg.vis_grad_tau * scale)
+
     @property
     def should_stop(self) -> bool:
         """Plateau detector (see `patience`)."""
@@ -340,7 +532,7 @@ class InverseRenderer:
         if self.resample:
             key = rng.fold_in(key, self._step)
         loss, grads = render_loss_grad(
-            self.scene, self.cam, key, self.target, self.cfg,
+            self.scene, self.cam, key, self.target, self._step_cfg(),
             self.width, self.height, self.light_idx, self.spp, self.loss,
             self.backend)
         g = {k: getattr(grads, k) for k in self.optimize}

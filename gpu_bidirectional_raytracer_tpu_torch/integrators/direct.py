@@ -16,6 +16,13 @@ whose contributions are the only ones it keeps). Occlusion can also come
 from outside (``occ_light``/``occ_vpl``, which take precedence): the
 re-walk of the many-sphere gradient reads it off the facts of a prior
 pass instead of scanning, and ``with_occ`` returns it, for the collector.
+
+With ``cfg.vis_grad_tau > 0`` both terms add a straight-through
+visibility carrier: ``x - x.detach()`` with ``x = stop(contrib) *
+intersect.soft_visibility(...)`` over every sample that faces the vertex,
+occluded or not. Its value is exactly 0, so images do not change; its
+gradient moves occluders, lights and VPLs across shadow edges. It runs
+whatever the source of the occlusion, given facts included.
 """
 
 from __future__ import annotations
@@ -82,20 +89,45 @@ def _occluded(scene: Scene, hp: Tensor, sdir: Tensor, maxt: Tensor,
 
 def _count_shadow_work(work: dict, scene: Scene, hp: Tensor, sdir: Tensor,
                        maxt: Tensor, set_up: Tensor, cast: Tensor,
-                       lit: Tensor, vacuum: bool) -> None:
+                       lit: Tensor, vacuum: bool,
+                       blockers: Tensor | None) -> None:
     """Adds one NEE term's shadow work per lane ``[N]`` to ``work``: the
     samples set up (``set_up [N, K]``), the shadow rays cast (``cast [N,
     K]``), the sphere tests those rays make before their first blocker,
     and the samples that reach the vertex (``lit [N, K]``: the ones the
-    adjoint kernel differentiates).
+    adjoint kernel differentiates). With the visibility carrier,
+    ``blockers [K]`` are the candidate blockers of each slot's soft
+    product, and ``carrier_terms`` counts two blocker terms (the product,
+    then its adjoint) per candidate of every cast sample.
     """
     tests = isect.anyhit_tests(
         scene, hp[:, None, :].expand_as(sdir).reshape(-1, 3),
         sdir.reshape(-1, 3), maxt.reshape(-1), vacuum).reshape(cast.shape)
+    terms = (torch.zeros_like(cast, dtype=torch.int64) if blockers is None
+             else torch.where(cast, 2 * blockers[None, :], 0))
     for name, per_slot in (("shadow_setups", set_up), ("shadow_rays", cast),
                            ("shadow_tests", torch.where(cast, tests, 0)),
-                           ("shadow_lit", lit)):
+                           ("shadow_lit", lit), ("carrier_terms", terms)):
         work[name] = work.get(name, 0) + per_slot.sum(dim=-1)
+
+
+def _vis_carrier(scene: Scene, cfg: IntegratorConfig, hp: Tensor,
+                 sdir: Tensor, maxt: Tensor, contrib: Tensor, cast: Tensor,
+                 exclude: Tensor, vacuum: bool) -> Tensor:
+    """The zero-primal visibility carrier ``[N, K, 3]`` of samples whose
+    segments run from ``hp [N, 3]`` along ``sdir [N, K, 3]`` up to ``maxt
+    [N, K]``: ``x - x.detach()`` with ``x = stop(contrib) * soft`` where
+    the sample faces the vertex (``cast [N, K]``). ``exclude [K]``: the
+    sphere each slot's soft product leaves out."""
+    flat_o = hp[:, None, :].expand_as(sdir).reshape(-1, 3)
+    soft = isect.soft_visibility(
+        scene, flat_o, sdir.reshape(-1, 3), maxt.reshape(-1),
+        cfg.vis_grad_tau, vacuum=vacuum,
+        exclude_id=exclude[None, :].expand(cast.shape).reshape(-1)
+    ).reshape(cast.shape)
+    carrier = torch.where(cast[..., None], contrib,
+                          torch.zeros_like(contrib)).detach() * soft[..., None]
+    return carrier - carrier.detach()
 
 
 def sample_direct(scene: Scene, cfg: IntegratorConfig,
@@ -136,18 +168,26 @@ def sample_direct(scene: Scene, cfg: IntegratorConfig,
     contrib = le[None, :, :] * (cfg.light_gain * scale)[..., None]
     cast = facing & (wi > 0.0)
     mask = cast & torch.logical_not(occluded)
-    contrib = torch.where(mask[..., None], contrib, torch.zeros_like(contrib))
+    hard = torch.where(mask[..., None], contrib, torch.zeros_like(contrib))
+    vis = cfg.vis_grad_tau > 0.0
+    if vis:   # the target light's chord starts at its sample point
+        hard = hard + _vis_carrier(scene, cfg, hp, sdir, maxt, contrib,
+                                   cast, li, vacuum=False)
     if work is not None:
+        blockers = (torch.full_like(li, scene.num_spheres - 1) if vis
+                    else None)
         _count_shadow_work(work, scene, hp, sdir, maxt,
-                           torch.ones_like(cast), cast, mask, vacuum=False)
+                           torch.ones_like(cast), cast, mask, False,
+                           blockers)
     for slot in range(len(light_idx)):
-        out = out + contrib[:, slot]
+        out = out + hard[:, slot]
     return (out, occluded, mask) if with_occ else out
 
 
 def vpl_window(cfg: IntegratorConfig, vpls: VplBuffer, vlp_index: int):
-    """The gathered VPLs ``(hp, rad, nl, valid)``, each ``[K, ...]`` with
-    ``K = vpl_depth * max_vlp`` (depth-major)."""
+    """The gathered VPLs ``(hp, rad, nl, valid, sid)``, each ``[K, ...]``
+    with ``K = vpl_depth * max_vlp`` (depth-major); ``sid`` is each VPL's
+    host sphere, -1 where the buffer records none."""
     raw = torch.arange(cfg.max_vlp, device=vpls.hp.device) + int(vlp_index)
     if cfg.stale_vpl_window:
         # The reference's window slides off the end: slots past it are
@@ -161,7 +201,9 @@ def vpl_window(cfg: IntegratorConfig, vpls: VplBuffer, vlp_index: int):
     return (vpls.hp[:d_, lanes].reshape(-1, 3),
             vpls.rad[:d_, lanes].reshape(-1, 3),
             vpls.nl[:d_, lanes].reshape(-1, 3),
-            (vpls.valid[:d_, lanes] & in_range[None, :]).reshape(-1))
+            (vpls.valid[:d_, lanes] & in_range[None, :]).reshape(-1),
+            torch.full_like(raw[None, :].expand(d_, -1), -1).reshape(-1)
+            if vpls.sid is None else vpls.sid[:d_, lanes].reshape(-1))
 
 
 def gather_vpls(scene: Scene, cfg: IntegratorConfig, vpls: VplBuffer,
@@ -172,8 +214,9 @@ def gather_vpls(scene: Scene, cfg: IntegratorConfig, vpls: VplBuffer,
     """The VPL gather at ``hp``, averaged over the window: ``[N, 3]``.
     ``occ_override [N, K]``, ``with_occ``, ``scan_backend`` and ``active``
     as in `sample_direct`; the gate of a slot also needs the slot to be
-    valid. Its shadow rays pass through emitters (the vacuum scan)."""
-    w_hp, w_rad, w_nl, w_valid = vpl_window(cfg, vpls, vlp_index)
+    valid. Its shadow rays pass through emitters (the vacuum scan), and
+    its visibility carrier leaves out each VPL's host sphere."""
+    w_hp, w_rad, w_nl, w_valid, w_sid = vpl_window(cfg, vpls, vlp_index)
     k = w_hp.shape[0]
     sdir, length, maxt = _segments(w_hp[None, :, :].expand(
         hp.shape[0], k, 3), hp)
@@ -186,14 +229,25 @@ def gather_vpls(scene: Scene, cfg: IntegratorConfig, vpls: VplBuffer,
     contrib = w_rad[None, :, :] * (wi * wo)[..., None]
     cast = facing & (wi > 0.0) & w_valid[None, :]
     mask = cast & torch.logical_not(occluded)
-    contrib = torch.where(mask[..., None], contrib, torch.zeros_like(contrib))
+    hard = torch.where(mask[..., None], contrib, torch.zeros_like(contrib))
+    vis = cfg.vis_grad_tau > 0.0
+    if vis:
+        hard = hard + _vis_carrier(scene, cfg, hp, sdir, maxt, contrib,
+                                   cast, w_sid.to(torch.int64), vacuum=True)
     if work is not None:
+        blockers = None
+        if vis:   # the non-emitters, less a non-emitting host
+            solid = torch.logical_not(scene.is_light())
+            host = w_sid.to(torch.int64)
+            in_scene = (host >= 0) & (host < scene.num_spheres)
+            blockers = solid.sum() - (in_scene & solid[
+                torch.clamp(host, 0, scene.num_spheres - 1)]).to(torch.int64)
         _count_shadow_work(work, scene, hp, sdir, maxt,
                            w_valid[None, :].expand_as(cast), cast, mask,
-                           vacuum=True)
-    total = contrib[:, 0]
+                           True, blockers)
+    total = hard[:, 0]
     for v in range(1, k):
-        total = total + contrib[:, v]
+        total = total + hard[:, v]
     # Times the reciprocal, not divided: PyTorch on the card turns a
     # division by a host scalar into this product anyway, so the plain
     # version rounds alike on every device and like the CUDA kernel.

@@ -11,7 +11,9 @@ the two dot products so that their cross terms are ``[N, 3] @ [3, S]``
 matrix products, whose backward is matrix products too (the roots agree
 with the direct form to about 1e-3 at Cornell scale). `sphere_root` is the
 direct root for one given sphere per lane: what the re-walk of the
-many-sphere gradient uses instead of the scan.
+many-sphere gradient uses instead of the scan. `soft_visibility` is the
+relaxed shadow test whose linearization the visibility carrier
+(``IntegratorConfig.vis_grad_tau``) adds to the gradient.
 """
 
 from __future__ import annotations
@@ -23,6 +25,13 @@ from gpu_bidirectional_raytracer_tpu_torch.core import vecmath as vm
 from gpu_bidirectional_raytracer_tpu_torch.core.types import EPSILON, Scene
 
 _BIG = 1e20  # miss sentinel of the nearest-hit scan
+
+# Width of `soft_visibility`'s far-endpoint sigmoid, as a fraction of tau,
+# in scene units (the JAX package's constant; csrc/grad_kernel.cu's
+# kEndpointFrac): the endpoint crossing is sampled densely by the light
+# tape, so a narrow band costs no variance and removes the bias of a wide
+# one.
+ENDPOINT_TAU_FRACTION = 0.25
 
 
 def _tf32_matmuls() -> bool:
@@ -71,7 +80,12 @@ def sphere_distances(scene: Scene, o: Tensor, d: Tensor,
 def intersect(scene: Scene, o: Tensor, d: Tensor, method: str = "direct"
               ) -> tuple[Tensor, Tensor, Tensor]:
     """Nearest hit: ``(hit [N] bool, t [N], id [N] int64)``."""
-    ts = sphere_distances(scene, o, d, method=method)
+    return nearest_of(sphere_distances(scene, o, d, method=method))
+
+
+def nearest_of(ts: Tensor) -> tuple[Tensor, Tensor, Tensor]:
+    """``(hit, t, id)`` of the nearest positive entry of hit distances
+    ``ts [N, S]``; ``t`` is ``_BIG`` where there is none."""
     masked = torch.where(ts > 0.0, ts, torch.full_like(ts, _BIG))
     t, idx = torch.min(masked, dim=-1)
     # torch.min's index on ties is not specified: take the lowest index.
@@ -168,3 +182,41 @@ def sphere_root(o: Tensor, d: Tensor, p: Tensor, rad: Tensor,
     zero = torch.zeros_like(t1)
     t = torch.where(t1 > eps, t1, torch.where(t2 > eps, t2, zero))
     return torch.where(hit, t, zero)
+
+
+def soft_visibility(scene: Scene, o: Tensor, d: Tensor, maxt: Tensor,
+                    tau: float, vacuum: bool = False,
+                    exclude_id: Tensor | None = None) -> Tensor:
+    """Relaxed visibility ``[N]`` of the shadow segments ``(o, d, maxt)``:
+    ``prod_s (1 - blocked_s)`` over the spheres, in ``[0, 1]``.
+
+    Each blocker relaxes two edges: its silhouette, ``sigmoid(det / max(tau
+    r, 1e-6))`` with ``det`` the ray's discriminant and the width stopped;
+    and the segment's far end, ``sigmoid((maxt - t1) / max(0.25 tau,
+    1e-6))`` with ``t1 = b - sqrt(max(det, 1e-6))`` the chord's entry. The
+    near end stays hard and stopped (``b > EPSILON``): relaxing it would
+    let a vertex's own sphere shadow it. ``vacuum``: emitters never block.
+    ``exclude_id [N]``: one sphere left out per segment (the target light
+    of a light sample, whose chord starts at the sample point; the host
+    sphere of a VPL). Callers use only its linearization, through a
+    zero-primal carrier, so images never see its value.
+    """
+    op = scene.p[None, :, :] - o[:, None, :]                     # [N, S, 3]
+    b = vm.dot(op, d[:, None, :])
+    opop = vm.dot(op, op)
+    det = b * b - opop + (scene.rad * scene.rad)[None, :]
+    width = torch.clamp(tau * scene.rad, min=1e-6).detach()[None, :]
+    edge = torch.sigmoid(det / width)
+    t1 = b - torch.sqrt(torch.clamp(det, min=1e-6))
+    endpoint = torch.sigmoid((maxt[:, None] - t1)
+                             / max(ENDPOINT_TAU_FRACTION * tau, 1e-6))
+    gate = (b > EPSILON).to(o.dtype)
+    blocked = edge * endpoint * gate
+    if exclude_id is not None:
+        spheres = torch.arange(scene.num_spheres, device=o.device)
+        blocked = blocked * (spheres[None, :]
+                             != exclude_id[:, None]).to(o.dtype)
+    if vacuum:
+        blocked = blocked * torch.logical_not(
+            scene.is_light())[None, :].to(o.dtype)
+    return torch.prod(1.0 - blocked, dim=-1)

@@ -52,7 +52,8 @@ from gpu_bidirectional_raytracer_tpu_torch.integrators import intersect as isect
 
 SCAN_BACKENDS = ("xla", "mxu", "pallas")
 STATS = ("extension_segments", "hit_segments", "diffuse_vertices",
-         "shadow_setups", "shadow_rays", "shadow_tests", "shadow_lit")
+         "shadow_setups", "shadow_rays", "shadow_tests", "shadow_lit",
+         "carrier_terms")
 
 
 class PathState(NamedTuple):
@@ -282,8 +283,10 @@ def trace(scene: Scene, cfg: IntegratorConfig, light_idx: tuple[int, ...],
     scatter), ``shadow_setups`` (light samples and valid VPL slots set
     up), ``shadow_rays`` (those that face the vertex and are cast),
     ``shadow_tests`` (the ray-sphere tests of those rays up to their
-    first blocker) and ``shadow_lit`` (the cast samples that no sphere
-    blocks).
+    first blocker), ``shadow_lit`` (the cast samples that no sphere
+    blocks) and, with ``cfg.vis_grad_tau > 0``, ``carrier_terms`` (the
+    blocker terms of the visibility carrier: two per candidate blocker of
+    every cast sample, the soft product and its adjoint; else 0).
     """
     if scan_backend not in SCAN_BACKENDS:
         raise ValueError(f"unknown scan_backend {scan_backend!r}")

@@ -116,6 +116,7 @@ _RUN_ARGS = _TABLE_ARGS + [                       # shared by the adjoint
     ctypes.c_int,                                 # combine_half
     ctypes.c_uint, ctypes.c_uint,                 # lane_offset, lane_total
     ctypes.c_float, ctypes.c_float,               # emission_scale, light_gain
+    ctypes.c_float,                               # vis_tau (> 0: carrier)
 ]
 
 _BOUNCE_ARGS = _TABLE_ARGS + [                    # shared by the bounce pair

@@ -17,9 +17,14 @@ entry points (see the note at the top of the source for the design):
 The estimator's gradient policy is autograd's on the plain tracer: hit
 ids, material and emitter masks, facing tests, occlusion and the Fresnel
 branch are detached; hit distances are differentiable through the root of
-the hit sphere. The kernels differentiate the port's own expressions, so
-on the card they are held against `trace_diff_plain` and `loss_grad_plain`
-(autograd through `path_tracer.trace`).
+the hit sphere. With ``cfg.vis_grad_tau > 0`` both kernels also carry the
+visibility carrier of `integrators.direct` (the adjoint of
+`intersect.soft_visibility` into the blockers and the shadow segments);
+the forward does not change. The kernels differentiate the port's own
+expressions, so on the card they are held against `trace_diff_plain` and
+`loss_grad_plain` (autograd through `path_tracer.trace`, which carries
+the carrier itself). The silhouette carrier (``sil_grad_tau``) lies
+outside the tracer, in `diff.gradients`.
 
 Both take their random tape as `ops.pallas_trace.Tape`: mix32 site keys,
 or a streamed ``[K, n]`` tape for a threefry key (the fitter's).
@@ -28,7 +33,8 @@ A wrapper given CPU tensors runs the plain version. Given CUDA tensors it
 launches its kernel or raises; it never falls back. Each launch adds one
 to ``LAUNCHES["grad_kernel"]`` or ``LAUNCHES["fused_kernel"]`` (in
 `ops.pallas_trace`, beside ``trace_kernel``'s count), where `_run` makes
-it.
+it; a launch with the visibility carrier to ``"grad_kernel_vis"`` or
+``"fused_kernel_vis"`` instead.
 """
 
 from __future__ import annotations
@@ -57,19 +63,6 @@ LOSS_KINDS = {"l2": 0, "log": 1}
 PARAMS = ("p", "rad", "e", "c")   # the scene's differentiable fields
 
 
-def check_supported(cfg: IntegratorConfig) -> None:
-    """Raise for what the port's differentiable path does not cover yet:
-    the straight-through carriers of ``vis_grad_tau`` and ``sil_grad_tau``
-    (the gradient carriers of ROADMAP), on every device."""
-    if cfg.vis_grad_tau > 0.0:
-        raise NotImplementedError(
-            "vis_grad_tau > 0: the soft-visibility carrier is not ported "
-            "yet")
-    if cfg.sil_grad_tau > 0.0:
-        raise NotImplementedError(
-            "sil_grad_tau > 0: the silhouette carrier is not ported yet")
-
-
 def _check_sphere_limit(scene: Scene) -> None:
     """The adjoint kernels take scenes of at most `SPHERE_LIMIT` spheres,
     as JAX's do; larger ones go to `ops.pallas_bounce_grad`."""
@@ -81,6 +74,13 @@ def _check_sphere_limit(scene: Scene) -> None:
 
 
 def _check_launch(cfg: IntegratorConfig, n_lights: int, n_vpl: int) -> None:
+    # The kernels take tau as a float32 and pick the carrier instantiation
+    # by its sign there; a tau that rounds to 0 would drop the carrier
+    # that the plain tracer and `LAUNCHES` keep, so taus below float32's
+    # smallest normal are refused.
+    if 0.0 < cfg.vis_grad_tau < torch.finfo(torch.float32).tiny:
+        raise ValueError(f"vis_grad_tau {cfg.vis_grad_tau} is below "
+                         f"float32's smallest normal")
     if cfg.max_depth > MAX_DEPTH:
         raise ValueError(f"max_depth {cfg.max_depth} above the adjoint "
                          f"kernel's {MAX_DEPTH}")
@@ -99,11 +99,11 @@ def _fn(entry: str):
     return _build.load(entry)
 
 
-def _run(entry: str, args: tuple) -> None:
+def _run(entry: str, args: tuple, cfg: IntegratorConfig) -> None:
     rc = _fn(entry)(*args)
     if rc != 0:
         raise RuntimeError(f"{entry} launch failed: CUDA error {rc}")
-    LAUNCHES[entry] += 1
+    LAUNCHES[entry + ("_vis" if cfg.vis_grad_tau > 0.0 else "")] += 1
 
 
 def _grad_outputs(scene_tab: Tensor, vpl_tab: Tensor, n: int):
@@ -140,7 +140,8 @@ def _common_args(scene_tab, vpl_tab, tape, n_lights, o, d, n,
             n_lights,
             o.data_ptr(), d.data_ptr(), n,
             cfg.max_depth, max(n_lights, 1), int(cfg.combine_half),
-            lane_offset, lane_total, cfg.emission_scale, cfg.light_gain)
+            lane_offset, lane_total, cfg.emission_scale, cfg.light_gain,
+            cfg.vis_grad_tau)
 
 
 def grad_launch(scene_tab: Tensor, vpl_tab: Tensor,
@@ -165,7 +166,7 @@ def grad_launch(scene_tab: Tensor, vpl_tab: Tensor,
         rays.d.detach(), n, cfg, lane_offset,
         n if lane_total is None else lane_total) + (
         cot.data_ptr(), dtab_part.data_ptr(), dvpl_part.data_ptr(),
-        d_o.data_ptr(), d_d.data_ptr(), _stream(dev)))
+        d_o.data_ptr(), d_d.data_ptr(), _stream(dev)), cfg)
     dtab, dvpl = _reduce_partials(dtab_part, dvpl_part, vpl_tab)
     return dtab, dvpl, d_o, d_d
 
@@ -202,7 +203,7 @@ def fused_launch(scene_tab: Tensor, vpl_tab: Tensor,
         target.data_ptr(), LOSS_KINDS[loss], 1.0 / (3.0 * n),
         dtab_part.data_ptr(), dvpl_part.data_ptr(), loss_part.data_ptr(),
         None if radiance_out is None else radiance_out.data_ptr(),
-        _stream(dev)))
+        _stream(dev)), cfg)
     dtab, dvpl = _reduce_partials(dtab_part, dvpl_part, vpl_tab)
     return loss_part.sum() / (3.0 * n), dtab, dvpl
 
@@ -256,7 +257,6 @@ def trace_pallas_diff(scene: Scene, cfg: IntegratorConfig,
                       lane_total: int | None = None) -> Tensor:
     """Radiance ``[N, 3]`` of the rays, differentiable w.r.t. the scene's
     ``p/rad/e/c``, the VPL buffer's ``hp/rad/nl`` and the rays."""
-    check_supported(cfg)
     if scene.device.type == "cpu":
         return trace_diff_plain(scene, cfg, light_idx, rays, key, sample,
                                 vpls, vlp_index, lane_offset, lane_total)
@@ -342,7 +342,6 @@ def trace_pallas_loss_grad(scene: Scene, cfg: IntegratorConfig,
     without VPLs."""
     if loss not in LOSS_KINDS:
         raise ValueError(f"fused step supports loss 'l2'/'log', got {loss!r}")
-    check_supported(cfg)
     if scene.device.type == "cpu":
         return loss_grad_plain(scene, cfg, light_idx, rays, key, sample,
                                target, vpls, vlp_index, loss)

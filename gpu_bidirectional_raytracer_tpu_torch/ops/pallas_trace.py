@@ -44,8 +44,10 @@ from gpu_bidirectional_raytracer_tpu_torch.integrators.direct import vpl_window
 
 # Launches of each CUDA kernel, counted where the kernel is launched
 # (`ops.pallas_grad`, `ops.pallas_bounce`, `ops.pallas_bounce_grad` and
-# `ops.pallas_scan` count theirs here too).
+# `ops.pallas_scan` count theirs here too). The adjoint kernels' launches
+# with the visibility carrier count under their own "_vis" names.
 LAUNCHES = {"trace_kernel": 0, "grad_kernel": 0, "fused_kernel": 0,
+            "grad_kernel_vis": 0, "fused_kernel_vis": 0,
             "bounce_kernel": 0, "aux_kernel": 0, "nearest_kernel": 0,
             "anyhit_kernel": 0}
 
@@ -77,14 +79,16 @@ def _scene_table(scene: Scene) -> Tensor:
 
 def _vpl_table(cfg: IntegratorConfig, vpls: VplBuffer | None,
                vlp_index: int | None, device) -> Tensor:
-    """The gather window ``[V, 16]``: hp(3), rad(3), nl(3), valid, pad;
-    ``V = 0`` when there is no VPL gather."""
+    """The gather window ``[V, 16]``: hp(3), rad(3), nl(3), valid, the
+    host sphere id (the visibility carrier leaves it out of the VPL's
+    shadow ray), pad; ``V = 0`` when there is no VPL gather."""
     if not (cfg.use_vpl and vpls is not None):
         return torch.zeros((0, 16), dtype=torch.float32, device=device)
-    hp, rad, nl, valid = vpl_window(cfg, vpls, vlp_index)
+    hp, rad, nl, valid, sid = vpl_window(cfg, vpls, vlp_index)
     v = hp.shape[0]
     return torch.cat([hp, rad, nl, valid.to(torch.float32)[:, None],
-                      torch.zeros((v, 6), dtype=torch.float32,
+                      sid.to(torch.float32)[:, None],
+                      torch.zeros((v, 5), dtype=torch.float32,
                                   device=device)], dim=1).contiguous()
 
 

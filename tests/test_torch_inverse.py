@@ -262,31 +262,93 @@ def test_projections_match_jax(monkeypatch):
     assert (e == 0.0).any() and (e >= 0.0).all()
 
 
-def test_unported_settings_raise_on_cpu():
-    """The gradient carriers of vis_grad_tau and sil_grad_tau are not
-    ported: they raise on every device, not only on the card, and through
-    every backend, the matmul scans ('mxu') included."""
+def test_carriers_run_through_every_backend_on_cpu():
+    """The gradient carriers of vis_grad_tau and sil_grad_tau run on the
+    CPU through every backend, the matmul scans ('mxu') included: finite
+    losses and gradients, the image of `render_radiance` unchanged, and a
+    fitter step. The fused step still refuses the product loss."""
     scene, cam, cfg, li, img = _setup(False)
     tscene, tcam = to_torch_scene(scene), to_torch_camera(cam)
     target = torch.tensor(np.asarray(img))
     key = key_words(jrng.make_key(0))
-    carriers = {"vis_grad_tau": "soft-visibility carrier",
-                "sil_grad_tau": "silhouette carrier"}
-    for field, carrier in carriers.items():
-        tcfg = dataclasses.replace(to_torch_config(cfg), **{field: 0.5})
+    plain_cfg = to_torch_config(cfg)
+    image = TG.render_radiance(tscene, tcam, key, plain_cfg, W, H, li, 1)
+    for field in ("vis_grad_tau", "sil_grad_tau"):
+        tcfg = dataclasses.replace(plain_cfg, **{field: 0.5})
         for backend in ("auto", "pallas", "xla", "mxu"):
-            with pytest.raises(NotImplementedError, match=carrier):
-                TG.render_loss_grad(tscene, tcam, key, target, tcfg, W, H,
-                                    li, 1, "l2", backend)
-        with pytest.raises(NotImplementedError, match=carrier):
-            TG.render_radiance(tscene, tcam, key, tcfg, W, H, li, 1)
+            loss, grads = TG.render_loss_grad(tscene, tcam, key, target,
+                                              tcfg, W, H, li, 1, "l2",
+                                              backend)
+            assert np.isfinite(float(loss)), (field, backend)
+            assert all(torch.isfinite(getattr(grads, k)).all()
+                       for k in ("p", "rad", "e", "c")), (field, backend)
+        assert torch.equal(
+            TG.render_radiance(tscene, tcam, key, tcfg, W, H, li, 1), image)
         inv = TG.InverseRenderer(scene=tscene, cam=tcam, target=target,
-                                 cfg=tcfg, width=W, height=H)
-        with pytest.raises(NotImplementedError):
-            inv.step()
+                                 cfg=tcfg, width=W, height=H, spp=1)
+        assert np.isfinite(inv.step())
     with pytest.raises(ValueError):
-        tpg.trace_pallas_loss_grad(tscene, to_torch_config(cfg), li, None,
+        tpg.trace_pallas_loss_grad(tscene, plain_cfg, li, None,
                                    key, 0, target, loss="l2_unbiased")
+
+
+@pytest.mark.parametrize("tau_anneal,anneal_steps,anneal_stages", [
+    (0.25, 8, 4), (0.5, 5, 3), (0.1, 3, 1), (1.0, 8, 4), (0.25, 0, 4)])
+def test_step_cfg_stages_match_jax(tau_anneal, anneal_steps, anneal_stages):
+    """The staged tau annealing of `_step_cfg` against the JAX class's,
+    over steps 0 to ``anneal_steps + 2`` (the last two past the end)."""
+    scene, cam, cfg, li, img = _setup(False)
+    cfg = dataclasses.replace(cfg, vis_grad_tau=2.0, sil_grad_tau=1.5)
+    kw = dict(tau_anneal=tau_anneal, anneal_steps=anneal_steps,
+              anneal_stages=anneal_stages, width=W, height=H)
+    jinv = JG.InverseRenderer(scene=scene, cam=cam, target=img, cfg=cfg,
+                              **kw)
+    tinv = TG.InverseRenderer(
+        scene=to_torch_scene(scene), cam=to_torch_camera(cam),
+        target=torch.tensor(np.asarray(img)), cfg=to_torch_config(cfg),
+        **kw)
+    for step in range(anneal_steps + 3):
+        jinv._step = tinv._step = step
+        want, got = jinv._step_cfg(), tinv._step_cfg()
+        assert (got.vis_grad_tau, got.sil_grad_tau) == (
+            want.vis_grad_tau, want.sil_grad_tau), step
+        assert got == to_torch_config(want)
+
+
+def test_inverse_steps_with_carriers_match_jax_fitter(monkeypatch):
+    """Two steps of the port's fitter with both carriers on and annealed
+    (the taus halve at the second step) beside the JAX class, seed 0,
+    under the tolerances of `test_inverse_steps_match_jax_fitter`, whose
+    eager JAX it shares."""
+    kw = dict(lr=0.5, optimize=("p", "rad"), resample=True,
+              tau_anneal=0.5, anneal_steps=1, anneal_stages=2)
+    jitted = JG.render_loss_grad
+
+    def eager(*args):
+        with jax.disable_jit():
+            return jitted.__wrapped__(*args)
+
+    monkeypatch.setattr(JG, "render_loss_grad", eager)
+    scene, cam, cfg, li, img = _setup(False)
+    cfg = dataclasses.replace(cfg, vis_grad_tau=2.0, sil_grad_tau=1.0)
+    jinv = JG.InverseRenderer(scene=scene, cam=cam, target=img, cfg=cfg,
+                              width=W, height=H, spp=1, **kw)
+    tinv = TG.InverseRenderer(
+        scene=to_torch_scene(scene), cam=to_torch_camera(cam),
+        target=torch.tensor(np.asarray(img)), cfg=to_torch_config(cfg),
+        width=W, height=H, spp=1, **kw)
+    assert (tinv.loss, tinv.backend) == (jinv.loss, jinv.backend)
+    for step in range(2):
+        assert tinv._step_cfg() == to_torch_config(jinv._step_cfg())
+        want = jinv.step()
+        got = tinv.step()
+        assert got == pytest.approx(want, rel=1e-5)
+        for k in kw["optimize"]:
+            np.testing.assert_allclose(
+                getattr(tinv.scene, k).numpy(),
+                np.asarray(getattr(jinv.scene, k)), rtol=PARAM_RTOL,
+                atol=STEP_RTOL * kw["lr"] * (step + 1),
+                err_msg=f"step {step} {k}")
 
 
 def test_fitter_keys_are_mix32_make_key_and_fold_in():

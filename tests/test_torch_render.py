@@ -153,7 +153,7 @@ def test_port_and_smoke_script_never_import_jax():
         "from gpu_bidirectional_raytracer_tpu_torch.render import film, "
         "progressive\n"
         "from gpu_bidirectional_raytracer_tpu_torch.integrators import "
-        "light_tracer, path_tracer\n"
+        "direct, intersect, light_tracer, path_tracer\n"
         "runpy.run_path('chip_smoke.py', run_name='chip_smoke')\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' "
         "or m.startswith('jax.') or m.startswith("

@@ -2,8 +2,8 @@
 its time on the card.
 
     python3 tools/profile_torch_pass.py [--scene cornell|complex]
-        [--size 512] [--height H] [--passes 20] [--train | --scan
-        [--compact]]
+        [--size 512] [--height H] [--passes 20] [--train [--vis-tau T]
+        [--sil-tau T] | --scan [--compact]]
 
 Without ``--train`` or ``--scan``: renders the scene
 (``assets/scenes/<scene>.scn``) with the port's `Renderer` on the card.
@@ -12,7 +12,9 @@ With ``--train``: runs the training step the JAX package's bench times,
 backend) against a black target, on a fresh mix32 key each step: the
 fused kernel on cornell.scn, the fact kernel and the re-walk on
 complex.scn (783 spheres; the JAX bench runs it at ``--size 512 --height
-384``). With ``--scan``: traces samples through the per-bounce scan route,
+384``); ``--vis-tau`` and ``--sil-tau`` turn the gradient carriers on
+(a silhouette carrier takes the unfused route). With ``--scan``: traces
+samples through the per-bounce scan route,
 `path_tracer.trace(scan_backend="pallas")`, as tools/bench_complex.py
 does (sample ``s``: jittered camera rays and the light subpaths of that
 sample, mix32 key 0), with ``--compact`` its lane compaction. Either way it
@@ -46,9 +48,11 @@ def _passes(scene, orig, target, width, height):
     return r.render
 
 
-def _train_steps(scene, orig, target, width, height):
-    """``run(k)``: k fused training steps of `render_loss_grad`, each on a
-    fresh key, against a black target (the JAX bench's step)."""
+def _train_steps(scene, orig, target, width, height, vis_tau=0.0,
+                 sil_tau=0.0):
+    """``run(k)``: k training steps of `render_loss_grad`, each on a fresh
+    key, against a black target (the JAX bench's step), with the carriers'
+    taus."""
     from gpu_bidirectional_raytracer_tpu_torch import rng
     from gpu_bidirectional_raytracer_tpu_torch.core.types import (
         Camera,
@@ -61,7 +65,7 @@ def _train_steps(scene, orig, target, width, height):
         static_light_indices,
     )
 
-    cfg = IntegratorConfig()
+    cfg = IntegratorConfig(vis_grad_tau=vis_tau, sil_grad_tau=sil_tau)
     cam = Camera.make(orig, target, width, height)
     li = static_light_indices(scene)
     key = rng.make_key(0)
@@ -131,6 +135,10 @@ def main() -> int:
                       help="profile samples of the per-bounce scan route")
     ap.add_argument("--compact", action="store_true",
                     help="with --scan: compact the live lanes each depth")
+    ap.add_argument("--vis-tau", type=float, default=0.0,
+                    help="with --train: vis_grad_tau")
+    ap.add_argument("--sil-tau", type=float, default=0.0,
+                    help="with --train: sil_grad_tau")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("profile_torch_pass: no CUDA device", file=sys.stderr)
@@ -144,9 +152,11 @@ def main() -> int:
     if args.scan:
         run = _scan_samples(scene, orig, target, args.size, height,
                             args.compact)
+    elif args.train:
+        run = _train_steps(scene, orig, target, args.size, height,
+                           args.vis_tau, args.sil_tau)
     else:
-        run = (_train_steps if args.train else _passes)(scene, orig, target,
-                                                        args.size, height)
+        run = _passes(scene, orig, target, args.size, height)
     run(6)
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
@@ -179,6 +189,7 @@ def main() -> int:
                  ("scan_sample_compact" if args.compact else "scan_sample")
                  if args.scan else "render_pass"),
         "scene": args.scene, "width": args.size, "height": height,
+        "vis_grad_tau": args.vis_tau, "sil_grad_tau": args.sil_tau,
         "passes": args.passes,
         "ms_per_pass": ms_per_pass,
         "profiled_wall_ms_per_pass": wall_ms,
