@@ -46,8 +46,8 @@ reads are set to 0 just before it drives its path.
    by the carrier, the occluder's by more than the gates let pass (on
    Cornell the wall spheres hold every shadow segment, so the carrier
    adds nothing); ptxas's registers, spills and stack of the four
-   instantiations of the adjoint template: no spills, and the
-   carrier-off ones at their registers from before the carrier;
+   instantiations of the adjoint template: no spills, and each at the
+   registers and stack bytes of the redesign (``ADJOINT_RESOURCES``);
 6. ``tape_vs_plain``: a threefry key (the fitter's), whose tape the
    kernels read streamed from the card, at 64x48 on cornell.scn:
    ``trace_kernel`` in camera and ray mode under the radiance protocol,
@@ -137,7 +137,10 @@ reads are set to 0 just before it drives its path.
    instantiations' ``vis_ms``, ``vis_launches``, ``vis_bound_ms`` (the
    carrier's blocker terms counted by ``with_stats``) and
    ``vis_max_abs_err`` (from 5's occluder cases, where the carrier
-   moves the gradient).
+   moves the gradient), and each instantiation's dynamic shared memory
+   on the training path's tables and resident blocks per SM
+   (``smem_bytes``, ``blocks_per_sm``, ``vis_*``; the bytes gated to
+   ``ADJOINT_RESOURCES``).
 
 The last line is ``{"ok": true, "device": {...}}``. Any failed check exits
 non-zero before it. Without a card, or without the package beside it, the
@@ -233,10 +236,17 @@ OCCLUDER = (6.0, (0.0, 40.0, 0.0))
 # recompute); the adjoint's own 52 operations on a gated blocker and the
 # segment's adjoint are not counted.
 OPS_CARRIER_TERM = 37
-# ptxas's registers of the carrier-off instantiations (CUDA 12.8, sm_90a),
-# as they were before the carrier branch came in: the branch sits behind a
-# template parameter and must leave them as they are.
-CARRIER_OFF_REGISTERS = {"grad_kernel": 112, "fused_kernel": 118}
+# The resources of the four instantiations of csrc/grad_kernel.cu's kernel
+# template as the redesign left them: ptxas's registers and stack bytes
+# (CUDA 12.8, sm_90a), and the dynamic shared memory of a launch on the
+# training path's Cornell tables (512x512, IntegratorConfig()). An edit
+# that moves any of them must say so here.
+ADJOINT_RESOURCES = {
+    "grad_kernel": {"registers": 92, "stack": 928, "smem_bytes": 11972},
+    "fused_kernel": {"registers": 93, "stack": 928, "smem_bytes": 11972},
+    "grad_kernel_vis": {"registers": 95, "stack": 928, "smem_bytes": 25796},
+    "fused_kernel_vis": {"registers": 96, "stack": 928, "smem_bytes": 25796},
+}
 
 
 class SmokeFailure(RuntimeError):
@@ -639,6 +649,7 @@ def phase_grad_vs_plain(device) -> float:
     cases = {"default": (IntegratorConfig(), None),
              "no_vpl": (IntegratorConfig(use_vpl=False, combine_half=False),
                         None),
+             "vpl12": (IntegratorConfig(max_vlp=12), None),
              "fused_l2": (IntegratorConfig(), "l2"),
              "fused_log": (IntegratorConfig(), "log")}
     results, worst = {}, 0.0
@@ -836,14 +847,14 @@ def phase_carrier_vs_plain(device, ptxas: dict) -> dict:
                   f"(share {r['carrier_share']:.2e})")
             kind = "fused" if r["fused"] else "grad"
             worst[kind] = max(worst[kind], err)
-    check(set(inst) == {"grad_kernel", "fused_kernel", "grad_kernel_vis",
-                        "fused_kernel_vis"}
+    check(set(inst) == set(ADJOINT_RESOURCES)
           and all(v.get("spill_stores", 1) == 0
                   and v.get("spill_loads", 1) == 0 for v in inst.values())
-          and all(inst[k].get("registers") == regs
-                  for k, regs in CARRIER_OFF_REGISTERS.items()),
+          and all(inst[k].get(f) == want[f]
+                  for k, want in ADJOINT_RESOURCES.items()
+                  for f in ("registers", "stack")),
           f"grad_kernel instantiations {inst}: want no spills, and the "
-          f"carrier-off registers {CARRIER_OFF_REGISTERS}")
+          f"registers and stack of {ADJOINT_RESOURCES}")
     return worst
 
 
@@ -2223,6 +2234,13 @@ def phase_kernels(main: dict, train: dict, max_abs_err: float,
                + st_vis["carrier_terms"] * OPS_CARRIER_TERM)
     vis_work = {"carrier_terms": st_vis["carrier_terms"],
                 "fp32_ops": vis_ops, "vis_grad_tau": VIS_TAU}
+    res = {k: pg.kernel_resources(k, scene_tab, vpl_tab, tape, len(li))
+           for k in ADJOINT_RESOURCES}
+    check(all(res[k]["smem_bytes"] == want["smem_bytes"]
+              and res[k]["blocks_per_sm"] > 0
+              for k, want in ADJOINT_RESOURCES.items()),
+          f"adjoint kernels' shared memory {res}: want the bytes of "
+          f"{ADJOINT_RESOURCES}")
     grad_src = "gpu_bidirectional_raytracer_tpu_torch/csrc/grad_kernel.cu"
     rows += [{
         "name": "grad_kernel",
@@ -2241,6 +2259,9 @@ def phase_kernels(main: dict, train: dict, max_abs_err: float,
         "vis_bound_ms": _bound(vis_ops, grad_bytes)["bound_ms"],
         "vis_max_abs_err": carrier_err["grad"],
         "vis_work": vis_work,
+        **res["grad_kernel"],
+        "vis_smem_bytes": res["grad_kernel_vis"]["smem_bytes"],
+        "vis_blocks_per_sm": res["grad_kernel_vis"]["blocks_per_sm"],
     }, {
         "name": "fused_kernel",
         "route": "cuda",
@@ -2258,6 +2279,9 @@ def phase_kernels(main: dict, train: dict, max_abs_err: float,
         "vis_bound_ms": _bound(vis_ops, fused_bytes)["bound_ms"],
         "vis_max_abs_err": carrier_err["fused"],
         "vis_work": vis_work,
+        **res["fused_kernel"],
+        "vis_smem_bytes": res["fused_kernel_vis"]["smem_bytes"],
+        "vis_blocks_per_sm": res["fused_kernel_vis"]["blocks_per_sm"],
     }]
     rows += _bounce_rows(bounce, cpath, ctrain, device)
     rows += _scan_rows(scan, spath)

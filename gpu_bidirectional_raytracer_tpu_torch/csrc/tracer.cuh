@@ -56,6 +56,13 @@ enum : int {
   kDirectEnd = 3,  // direct_only: NEE at a diffuse vertex, then it ends
 };
 
+// The branches a glass vertex took (eye_step's `glass`, for the adjoint).
+enum : uint32_t {
+  kGlassInto = 1u,     // the ray enters the sphere
+  kGlassTir = 2u,      // total internal reflection: a mirror
+  kGlassReflect = 4u,  // Russian roulette chose the reflection
+};
+
 __device__ __forceinline__ float dot3(float ax, float ay, float az,
                                       float bx, float by, float bz) {
   return ax * bx + ay * by + az * bz;
@@ -183,11 +190,14 @@ __device__ __forceinline__ int nearest(const Tables& T, const Path& s,
 // bit n_lights + v for each VPL slot v, whose sample reached the vertex
 // (faced it and was not occluded): the detached facts the adjoint and the
 // fact kernel report. With T.direct_only a diffuse vertex returns
-// kDirectEnd after its NEE, `s` untouched, as an emitter hit does.
+// kDirectEnd after its NEE, `s` untouched, as an emitter hit does. With
+// `glass` non-null, a glass vertex writes the kGlass* bits of its branches
+// there.
 __device__ __forceinline__ int eye_step(const Tables& T, int row0,
                                         uint32_t gl, Path& s, float& rad_r,
                                         float& rad_g, float& rad_b,
-                                        int& hit, uint32_t* lit) {
+                                        int& hit, uint32_t* lit,
+                                        uint32_t* glass = nullptr) {
   float best_t;
   const int best = nearest(T, s, best_t);
   hit = best;
@@ -337,6 +347,8 @@ __device__ __forceinline__ int eye_step(const Tables& T, int row0,
         const float re = r0 + 0.96f * (c1 * (c2 * c2));
         const float pr = 0.25f + 0.5f * re;
         const float urr = tape(T, row0 + 2 * L + 2, gl);
+        if (glass != nullptr)
+          *glass = (into ? kGlassInto : 0u) | (urr < pr ? kGlassReflect : 0u);
         if (urr < pr) {
           mul = re / pr;
         } else {
@@ -345,6 +357,8 @@ __device__ __forceinline__ int eye_step(const Tables& T, int row0,
           ndz = tz;
           mul = (1.0f - re) / (1.0f - pr);
         }
+      } else if (glass != nullptr) {
+        *glass = (into ? kGlassInto : 0u) | kGlassTir;
       }
     }
   }

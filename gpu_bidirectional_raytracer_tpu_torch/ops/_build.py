@@ -154,6 +154,13 @@ _ENTRIES = {
         ctypes.c_void_p,                          # radiance out (or null)
         ctypes.c_void_p,                          # stream
     ]),
+    "grad_kernel_resources": ("grad_kernel", "grad_kernel_resources", [
+        ctypes.c_int, ctypes.c_int,               # fused, vis
+        ctypes.c_int, ctypes.c_int,               # n_spheres, n_vpl
+        ctypes.c_int, ctypes.c_int,               # n_rows, n_lights
+        ctypes.POINTER(ctypes.c_int),             # dynamic shared bytes out
+        ctypes.POINTER(ctypes.c_int),             # blocks per SM out
+    ]),
     "bounce_kernel": ("bounce_kernel", "bounce_kernel_launch",
                       _BOUNCE_ARGS + [ctypes.c_void_p]),   # stream
     "aux_kernel": ("bounce_kernel", "aux_kernel_launch", _BOUNCE_ARGS + [

@@ -39,6 +39,8 @@ it; a launch with the visibility carrier to ``"grad_kernel_vis"`` or
 
 from __future__ import annotations
 
+import ctypes
+
 import torch
 from torch import Tensor
 from torch.autograd.function import once_differentiable
@@ -104,6 +106,23 @@ def _run(entry: str, args: tuple, cfg: IntegratorConfig) -> None:
     if rc != 0:
         raise RuntimeError(f"{entry} launch failed: CUDA error {rc}")
     LAUNCHES[entry + ("_vis" if cfg.vis_grad_tau > 0.0 else "")] += 1
+
+
+def kernel_resources(name: str, scene_tab: Tensor, vpl_tab: Tensor,
+                     tape: pallas_trace.Tape, n_lights: int) -> dict:
+    """``{"smem_bytes", "blocks_per_sm"}``: the dynamic shared memory of a
+    launch of instantiation ``name`` (its `LAUNCHES` key: ``grad_kernel``,
+    ``fused_kernel``, ``grad_kernel_vis``, ``fused_kernel_vis``) on these
+    tables, and its resident blocks per SM (CUDA's occupancy calculator).
+    Needs a card."""
+    smem, blocks = ctypes.c_int(), ctypes.c_int()
+    rc = _fn("grad_kernel_resources")(
+        int(name.startswith("fused")), int(name.endswith("_vis")),
+        scene_tab.shape[0], vpl_tab.shape[0], tape.n_rows, n_lights,
+        ctypes.byref(smem), ctypes.byref(blocks))
+    if rc != 0:
+        raise RuntimeError(f"grad_kernel_resources failed: CUDA error {rc}")
+    return {"smem_bytes": smem.value, "blocks_per_sm": blocks.value}
 
 
 def _grad_outputs(scene_tab: Tensor, vpl_tab: Tensor, n: int):
