@@ -57,7 +57,11 @@ reads are set to 0 just before it drives its path.
 7. ``bounce_vs_plain``: at 64x48, depth 7, on complex.scn (mix32 and
    threefry keys) and on cornell.scn with ``direct_only``: each depth's
    ``bounce_kernel`` launch against ``bounce_plain`` on the same state
-   (``depth_exact_frac``); the whole trace against the full-scan plain
+   (``depth_exact_frac``), and on a ragged prefix of the lanes (3,059, not
+   a multiple of G x block) in the full frame's tape, equal to the full
+   launch's lanes bit for bit (``ragged_exact_frac``); both kernels with
+   every G (lanes per ray) the bits of G = 1 in the state and the facts
+   (``groups_same_bits``); the whole trace against the full-scan plain
    tracer under the radiance protocol; two traces with the same bits; the
    ``aux_kernel`` facts against the plain collector (the hit-id mismatch,
    and the occlusion mismatch over the entries either side reached, each
@@ -67,9 +71,10 @@ reads are set to 0 just before it drives its path.
 8. ``scan_vs_plain``: at 64x48, depth 7, on complex.scn (mix32 and
    threefry keys) and on cornell.scn, with VPLs: every scan of a plain
    trace of the scan route, with the dead lanes and dead warps of its
-   depths, through ``nearest_kernel`` and ``anyhit_kernel`` (both modes)
-   and their plain versions, equal bit for bit on every lane and on a
-   ragged prefix; two launches with the same bits; the whole trace
+   depths, through ``nearest_kernel`` and ``anyhit_kernel`` (both modes,
+   every G) and their plain versions (the any-hit one with its tile of
+   one lane), equal bit for bit on every lane and on a ragged prefix; two
+   launches with the same bits; the whole trace
    through the kernels against the full-scan plain tracer under the
    protocol, and equal to the plain route bit for bit; compaction equal
    bit for bit;
@@ -131,9 +136,13 @@ reads are set to 0 just before it drives its path.
    for the loss and the e and c gradients;
 16. ``kernels``: one JSON line with a row per kernel (seven): launches on
    its path, ms per launch, the plain version's ms, and the bound; the
-   bounce kernel's row also times 128, 256 and 512 threads per block, the
-   scan kernels' rows give each depth's time, without and with
-   compaction, and the adjoint kernels' rows their carrier
+   bounce kernel's row also times 128, 256 and 512 threads per block; the
+   bounce and fact kernels' rows give each depth's time alone on the state
+   the pass brings it (``ms_per_depth``), the live share per depth and
+   each depth's time at every G (``group_ms``); the scan kernels' rows
+   give each depth's time, without and with compaction, and the any-hit
+   row each launch's time at every G (``group_ms``); the adjoint kernels'
+   rows their carrier
    instantiations' ``vis_ms``, ``vis_launches``, ``vis_bound_ms`` (the
    carrier's blocker terms counted by ``with_stats``) and
    ``vis_max_abs_err`` (from 5's occluder cases, where the carrier
@@ -202,6 +211,7 @@ COMPLEX_W, COMPLEX_H, COMPLEX_PASSES, COMPLEX_TILE = 512, 384, 8, 96
 COMPLEX_STEPS = 3
 COMPLEX_GRAD_W, COMPLEX_GRAD_H = 128, 96
 BOUNCE_BLOCKS = (128, 256, 512)
+ANYHIT_BLOCKS = (256, 1024)
 # The per-bounce scan route on complex.scn at 512x384 (tools/
 # bench_complex.py), and the matmul form's training step there.
 SCAN_SAMPLES, MXU_STEPS = 8, 2
@@ -297,6 +307,49 @@ def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
     stop.record()
     torch.cuda.synchronize()
     return start.elapsed_time(stop) / reps
+
+
+PROFILER_FALLBACKS = []   # kernels whose trace held no launch: events
+
+
+def device_ms(fn, reps: int, match: str, reset=lambda: None,
+              launches: int = 1) -> float:
+    """Mean device ms of one launch of the kernels whose name holds
+    ``match``, over ``reps`` runs of ``fn()`` (each after ``reset()``, and
+    each making ``launches`` of them), from ``torch.profiler``'s trace of
+    the card: the kernel alone, without the host's gaps between launches,
+    which CUDA events around a launch shorter than its host call count.
+    A trace that misses launches is taken again, twice at most; then the
+    runs are timed with a CUDA event pair around each (``reset()`` left
+    out) and ``match`` is added to PROFILER_FALLBACKS."""
+    reset()
+    fn()
+    torch.cuda.synchronize()
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    for _ in range(3):
+        with torch.profiler.profile(activities=acts) as prof:
+            for _ in range(reps):
+                reset()
+                fn()
+            torch.cuda.synchronize()
+        events = [e for e in prof.key_averages()
+                  if match in e.key and e.self_device_time_total > 0]
+        count = sum(e.count for e in events)
+        if count == reps * launches:
+            return sum(e.self_device_time_total for e in events) / count / 1e3
+    PROFILER_FALLBACKS.append(match)
+    pairs = []
+    for _ in range(reps):
+        reset()
+        ev = (torch.cuda.Event(enable_timing=True),
+              torch.cuda.Event(enable_timing=True))
+        ev[0].record()
+        fn()
+        ev[1].record()
+        pairs.append(ev)
+    torch.cuda.synchronize()
+    return sum(a.elapsed_time(b) for a, b in pairs) / (reps * launches)
 
 
 def smi_line() -> str:
@@ -1318,6 +1371,7 @@ def phase_bounce_vs_plain(device) -> dict:
     from gpu_bidirectional_raytracer_tpu_torch.ops import (
         pallas_bounce_grad as pbg,
     )
+    from gpu_bidirectional_raytracer_tpu_torch.ops import pallas_scan as ps
     from gpu_bidirectional_raytracer_tpu_torch.render import progressive
 
     w, h, n = SMOKE_W, SMOKE_H, SMOKE_W * SMOKE_H
@@ -1336,14 +1390,55 @@ def phase_bounce_vs_plain(device) -> dict:
         kw = dict(vpls=vpls, vlp_index=0, direct_only=direct_only)
         call = pb.prepare_bounce(scene, cfg, li, key, 0, vpls, 0, n,
                                  direct_only)
+        # Every G, both kernels; and a ragged prefix of the lanes (not a
+        # multiple of G x block) in the full frame's tape.
+        group_calls = {(entry, g): pb.prepare_bounce(
+            scene, cfg, li, key, 0, vpls, 0, n, direct_only, entry=entry,
+            group=g) for entry in ("bounce_kernel", "aux_kernel")
+            for g in ps.GROUP_SIZES}
+        n_ragged = n - 13
+        ragged = pb.prepare_bounce(scene, cfg, li, key, 0, vpls, 0, n_ragged,
+                                   direct_only, lane_offset=0, lane_total=n)
+        n_vpl_tab = call.tables[1].shape[0]
         planes = pb.state_planes(rays)
-        per_depth = []
+        per_depth, ragged_frac, groups_same = [], [], []
         for depth in range(cfg.max_depth):
             want = pb.bounce_plain(scene, cfg, li, planes, key, 0, depth,
                                    **kw)
             got = planes.clone()
             call.launch(got, depth)
             per_depth.append(float((got == want).all(dim=0).float().mean()))
+            outs = {}
+            for (entry, g), c in group_calls.items():
+                p_ = planes.clone()
+                facts = ()
+                if entry == "aux_kernel":
+                    facts = (torch.empty((n,), dtype=torch.int32,
+                                         device=device),
+                             torch.empty((len(li), n), dtype=torch.bool,
+                                         device=device),
+                             torch.empty((max(n_vpl_tab, 1), n),
+                                         dtype=torch.bool, device=device))
+                    c.launch(p_, depth, (facts[0].data_ptr(),
+                                         facts[1].data_ptr(),
+                                         facts[2].data_ptr()
+                                         if n_vpl_tab else None))
+                else:
+                    c.launch(p_, depth)
+                outs[entry, g] = (p_,) + facts
+            first = {e: outs[e, ps.GROUP_SIZES[0]] for e in
+                     ("bounce_kernel", "aux_kernel")}
+            groups_same.append(torch.equal(first["aux_kernel"][0], got) and all(
+                all(torch.equal(a, b) for a, b in zip(v, first[e]))
+                for (e, _), v in outs.items()))
+            p_ = planes[:, :n_ragged].contiguous()
+            ragged.launch(p_, depth)
+            want_r = pb.bounce_plain(scene, cfg, li, planes[:, :n_ragged],
+                                     key, 0, depth, lane_offset=0,
+                                     lane_total=n, **kw)
+            ragged_frac.append(float(
+                (p_ == want_r).all(dim=0).double().mean())
+                if torch.equal(p_, got[:, :n_ragged]) else 0.0)
             planes = want
         got = pb.trace_pallas_bounce(scene, cfg, li, rays, key, 0, **kw)
         again = pb.trace_pallas_bounce(scene, cfg, li, rays, key, 0, **kw)
@@ -1362,6 +1457,8 @@ def phase_bounce_vs_plain(device) -> dict:
 
         r = {"scene_spheres": scene.num_spheres, "key": impl or "mix32",
              "direct_only": direct_only, "depth_exact_frac": per_depth,
+             "ragged_lanes": n_ragged, "ragged_exact_frac": ragged_frac,
+             "groups_same_bits": groups_same,
              "vs_plain": protocol(got, ref),
              "two_traces_same_bits": bool(torch.equal(got, again)),
              "aux_radiance_vs_plain": protocol(rad_k, rad_p),
@@ -1383,8 +1480,13 @@ def phase_bounce_vs_plain(device) -> dict:
         for what in ("vs_plain", "aux_radiance_vs_plain"):
             check(r[what]["finite"] and r[what]["bad_frac"] <= MAX_BAD_FRAC,
                   f"bounce_vs_plain {name} {what}: {r[what]}")
-        check(min(r["depth_exact_frac"]) >= 1.0 - MAX_BAD_FRAC,
-              f"bounce_vs_plain {name}: depths {r['depth_exact_frac']}")
+        check(min(r["depth_exact_frac"] + r["ragged_exact_frac"])
+              >= 1.0 - MAX_BAD_FRAC,
+              f"bounce_vs_plain {name}: depths {r['depth_exact_frac']}, "
+              f"ragged {r['ragged_exact_frac']}")
+        check(all(r["groups_same_bits"]),
+              f"bounce_vs_plain {name}: the G forms differ "
+              f"{r['groups_same_bits']}")
         check(r["two_traces_same_bits"],
               f"bounce_vs_plain {name}: two traces differ")
         f = r["facts"]
@@ -1690,6 +1792,7 @@ def phase_scan_vs_plain(device) -> dict:
     from gpu_bidirectional_raytracer_tpu_torch.integrators.direct import (
         static_light_indices,
     )
+    from gpu_bidirectional_raytracer_tpu_torch.ops import pallas_scan as ps
     from gpu_bidirectional_raytracer_tpu_torch.render import progressive
 
     w, h = SMOKE_W, SMOKE_H
@@ -1718,11 +1821,17 @@ def phase_scan_vs_plain(device) -> dict:
             full = _same_bits(*_scan_pair(scene, kind, args, vacuum))
             ragged = _same_bits(*_scan_pair(scene, kind, args, vacuum,
                                             args[0].shape[0] - 13))
+            groups = full[0]
+            if kind == "anyhit":       # every G against the plain version
+                want = ps.anyhit_plain(scene, *args, vacuum)
+                groups = all(torch.equal(ps.prepare_anyhit(
+                    scene, *args, vacuum, group=g)()[0], want)
+                    for g in ps.GROUP_SIZES)
             per_call.append({
                 "kind": kind + ("_vacuum" if vacuum else ""),
                 "lanes": args[0].shape[0],
                 "live_frac": float(args[-1].float().mean()),
-                "same_bits": full[0] and ragged[0],
+                "same_bits": full[0] and ragged[0] and groups,
                 "max_abs_err": max(full[1], ragged[1])})
             errs[kind] = max(errs[kind], full[1], ragged[1])
         twice = {}
@@ -2033,10 +2142,28 @@ def _scan_rows(svp: dict, spath: dict) -> list:
             launch = (ps.prepare_nearest(scene, *args) if kind == "nearest"
                       else ps.prepare_anyhit(scene, *args, vacuum))
             ms[compact][kind + ("_vacuum" if vacuum else "")].append(
-                cuda_ms(launch, reps=20))
+                cuda_ms(launch, reps=20) if kind == "nearest"
+                else device_ms(launch, 20, "anyhit_kernel"))
     live = {"nearest": [], "anyhit": [], "anyhit_vacuum": []}
     plain_ms = {"nearest": [], "anyhit": []}
+    group_ms = {g: {"shadow": [], "vacuum": []} for g in ps.GROUP_SIZES}
+    idle_ms = {}     # a launch with no active segment, each mode
+    block_ms = {b: [] for b in ANYHIT_BLOCKS}
     for kind, args, vacuum in calls[False]:
+        if kind == "anyhit":
+            for b in ANYHIT_BLOCKS:
+                block_ms[b].append(device_ms(ps.prepare_anyhit(
+                    scene, *args, vacuum, block=b), 20, "anyhit_kernel"))
+        if kind == "anyhit" and vacuum not in idle_ms:
+            idle = args[:3] + (torch.zeros_like(args[3]),)
+            idle_ms[vacuum] = device_ms(
+                ps.prepare_anyhit(scene, *idle, vacuum), 20, "anyhit_kernel")
+        if kind == "anyhit":
+            for g in ps.GROUP_SIZES:
+                group_ms[g]["vacuum" if vacuum else "shadow"].append(
+                    device_ms(ps.prepare_anyhit(scene, *args, vacuum,
+                                                group=g), 20,
+                              "anyhit_kernel"))
         live[kind + ("_vacuum" if vacuum else "")].append(
             float(args[-1].float().mean()))
         plain_ms[kind].append(cuda_ms(
@@ -2093,6 +2220,13 @@ def _scan_rows(svp: dict, spath: dict) -> list:
         "ms_compacted": mean(any_ms[True]),
         "ms_compacted_per_depth": {"shadow": ms[True]["anyhit"],
                                    "vacuum": ms[True]["anyhit_vacuum"]},
+        "group": ps.group_size(scene.num_spheres, ps.ANYHIT_PER_LANE),
+        "block_ms": block_ms,
+        "group_ms": group_ms,
+        "idle_ms": {"shadow": idle_ms[False], "vacuum": idle_ms[True]},
+        "resources": {mode: ps.anyhit_resources(scene, vac)
+                      for mode, vac in (("shadow", False),
+                                        ("vacuum", True))},
         "active_frac_per_depth": {"shadow": live["anyhit"],
                                   "vacuum": live["anyhit_vacuum"]},
         "work": {"shadow_tests": stats["shadow_tests"],
@@ -2285,6 +2419,7 @@ def phase_kernels(main: dict, train: dict, max_abs_err: float,
     }]
     rows += _bounce_rows(bounce, cpath, ctrain, device)
     rows += _scan_rows(scan, spath)
+    phase("timing", profiler_fallbacks=PROFILER_FALLBACKS)
     print(json.dumps({"kernels": rows}), flush=True)
 
 
@@ -2301,6 +2436,7 @@ def _bounce_rows(bounce: dict, cpath: dict, ctrain: dict, device) -> list:
     from gpu_bidirectional_raytracer_tpu_torch.ops import (
         pallas_bounce_grad as pbg,
     )
+    from gpu_bidirectional_raytracer_tpu_torch.ops import pallas_scan as ps
     from gpu_bidirectional_raytracer_tpu_torch.render import progressive
 
     r = cpath["renderer"]
@@ -2318,12 +2454,52 @@ def _bounce_rows(bounce: dict, cpath: dict, ctrain: dict, device) -> list:
         for depth in range(depths):
             call.launch(p, depth)
 
-    block_ms = {}
+    block_ms, event_ms = {}, {}
     for block in BOUNCE_BLOCKS:
         call = pb.prepare_bounce(scene, cfg, li, st.key, st.sample, vpls, vi,
                                  n, block=block)
-        block_ms[block] = cuda_ms(lambda: bounce_pass(call), reps=10) / depths
+        block_ms[block] = device_ms(lambda: bounce_pass(call), 10,
+                                    "bounce_kernel", launches=depths)
+        event_ms[block] = cuda_ms(lambda: bounce_pass(call),
+                                  reps=10) / depths
     ms = block_ms[pb.BLOCK]
+    # Each depth alone, on the state the pass brings it, with every G.
+    call = pb.prepare_bounce(scene, cfg, li, st.key, st.sample, vpls, vi, n)
+    states, p = [], planes.clone()
+    for depth in range(depths):
+        states.append(p.clone())
+        call.launch(p, depth)
+    live = [float((x[13] > 0.5).float().mean()) for x in states]
+    n_vpl_tab = call.tables[1].shape[0]
+    facts = [torch.empty((n,), dtype=torch.int32, device=device),
+             torch.empty((len(li), n), dtype=torch.bool, device=device),
+             torch.empty((max(n_vpl_tab, 1), n), dtype=torch.bool,
+                         device=device)]
+    fact_ptrs = (facts[0].data_ptr(), facts[1].data_ptr(),
+                 facts[2].data_ptr() if n_vpl_tab else None)
+
+    def per_depth(entry, group):
+        call = pb.prepare_bounce(scene, cfg, li, st.key, st.sample, vpls, vi,
+                                 n, entry=entry, group=group)
+        return [device_ms(lambda d=d: call.launch(
+            work, d, fact_ptrs if entry == "aux_kernel" else ()), 10,
+            "bounce_kernel", lambda d=d: work.copy_(states[d]))
+            for d in range(depths)]
+
+    work = planes.clone()
+    group_ms = {entry: {g: per_depth(entry, g) for g in ps.GROUP_SIZES}
+                for entry in ("bounce_kernel", "aux_kernel")}
+    # A launch with no live ray: the table loads and the flag reads.
+    idle = states[0].clone()
+    idle[13] = 0.0
+    idle_ms = device_ms(lambda: call.launch(work, depths - 1), 10,
+                        "bounce_kernel", lambda: work.copy_(idle))
+    group = ps.group_size(scene.num_spheres, pb.PER_LANE)
+    ms_per_depth = {entry: per_depth(entry, group)
+                    for entry in ("bounce_kernel", "aux_kernel")}
+    res = {entry: pb.prepare_bounce(scene, cfg, li, st.key, st.sample, vpls,
+                                    vi, n, entry=entry).resources()
+           for entry in ("bounce_kernel", "aux_kernel")}
 
     def plain_pass(collect):
         p = planes
@@ -2351,8 +2527,9 @@ def _bounce_rows(bounce: dict, cpath: dict, ctrain: dict, device) -> list:
     bounce_bytes = tables + 2 * 4 * pb.N_PLANES * n
     aux_bytes = bounce_bytes + (4 + len(li) + n_vpl) * n
     src = "gpu_bidirectional_raytracer_tpu_torch/csrc/bounce_kernel.cu"
-    aux_ms = cuda_ms(lambda: pbg.trace_bounce_aux(
-        scene, cfg, li, rays, st.key, st.sample, **kw), reps=10) / depths
+    aux_ms = device_ms(lambda: pbg.trace_bounce_aux(
+        scene, cfg, li, rays, st.key, st.sample, **kw), 10, "bounce_kernel",
+        launches=depths)
     aux_plain_ms = cuda_ms(lambda: plain_pass(True), reps=1,
                            warmup=1) / depths
     work = {**stats, "fp32_ops_per_launch": ops_launch,
@@ -2369,6 +2546,13 @@ def _bounce_rows(bounce: dict, cpath: dict, ctrain: dict, device) -> list:
         **_bound(ops_launch, bounce_bytes),
         "library_ms": None,
         "block_ms": block_ms,
+        "event_ms": event_ms[pb.BLOCK],
+        "group": group,
+        "ms_per_depth": ms_per_depth["bounce_kernel"],
+        "live_frac_per_depth": live,
+        "group_ms": group_ms["bounce_kernel"],
+        "idle_ms": idle_ms,
+        **res["bounce_kernel"],
         "work": {**work, "bytes": bounce_bytes},
     }, {
         "name": "aux_kernel",
@@ -2382,6 +2566,11 @@ def _bounce_rows(bounce: dict, cpath: dict, ctrain: dict, device) -> list:
         "plain_ms": aux_plain_ms,
         **_bound(ops_launch, aux_bytes),
         "library_ms": None,
+        "group": group,
+        "ms_per_depth": ms_per_depth["aux_kernel"],
+        "live_frac_per_depth": live,
+        "group_ms": group_ms["aux_kernel"],
+        **res["aux_kernel"],
         "work": {**work, "bytes": aux_bytes},
     }]
 

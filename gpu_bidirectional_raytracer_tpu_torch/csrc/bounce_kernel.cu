@@ -1,4 +1,5 @@
-// Per-depth bounce and fact kernels for Hopper (sm_90a): one thread per lane.
+// Per-depth bounce and fact kernels for Hopper (sm_90a): a group of G lanes
+// of a warp per ray.
 //
 // Replaces two TPU kernels of the many-sphere route (scenes of more than 64
 // spheres, and direct-only rendering at any sphere count):
@@ -12,31 +13,49 @@
 //   (integrators/path_tracer.py::trace with aux=) reads them instead of
 //   scanning the spheres.
 //
-// The depth is tracer.cuh's eye_step, the code of the eye-path kernel, so a
-// lane carried through the depths here sees the bits it sees there. The
-// state is 14 float planes [14, n] (origin, direction, radiance, throughput,
-// specular, alive), updated in place: each thread reads and writes only its
-// own lane. A dead lane leaves at once (the GPU's form of the TPU kernel's
-// dead-tile skip); the fact kernel writes "missed, blocked" for it first.
-// A slot whose shadow ray was not cast (the sample faced away, or the lane
-// is not at a live diffuse vertex) reads as blocked: the re-walk consumes
-// a fact only through facing & (wi > 0) & !occluded at live diffuse lanes,
-// where it is the kernel's own answer. (The TPU kernel writes the raw
-// any-hit result at every lane of a live tile.)
+// The depth is tracer.cuh's eye_step, the code of the eye-path kernel, with
+// its scans done by a group (GroupScan<G>), so a lane carried through the
+// depths here sees the bits it sees there. The state is 14 float planes
+// [14, n] (origin, direction, radiance, throughput, specular, alive),
+// updated in place: only the ray's own entries are read and written. A
+// dead ray passes through untouched; the fact kernel writes "missed,
+// blocked" for it. A slot whose shadow ray was not cast (the sample faced
+// away, or the lane is not at a live diffuse vertex) reads as blocked: the
+// re-walk consumes a fact only through facing & (wi > 0) & !occluded at
+// live diffuse lanes, where it is the kernel's own answer. (The TPU kernel
+// writes the raw any-hit result at every lane of a live tile.)
 //
-// Design for the GPU: the sphere table (complex.scn: 783 x 16 floats, 50 KB),
-// the VPL window and the tape keys sit in dynamic shared memory, opted in
-// above 48 KB with cudaFuncSetAttribute; a table larger than the block's
-// 227 KB makes the launch fail with an error. The tape is mix32 regenerated
-// from site keys or a streamed [K, n] buffer (tracer.cuh's tape()). The
-// block size is the caller's (256 threads by default; see ops/
-// pallas_bounce.py).
+// Bound: FP32 ALU at the first depth, where every ray is live: per live
+// ray and depth S sphere roots for the nearest hit, and at a diffuse
+// vertex (L + V) shadow rays of up to S roots each; without contraction
+// into FMA and with IEEE square roots a root takes about 35 instructions.
+// Past it 1-7% of the rays live, and a launch lasts as long as its
+// slowest group's chain of roots plus the tables' load. The memory
+// traffic is the state, 56 bytes each way per ray and depth (11 MB each
+// way at 512x384), and for the fact kernel 4 + L + V bytes of facts per
+// ray and depth.
 //
-// Bound: FP32 ALU. Per live lane and depth it evaluates S sphere roots for
-// the nearest hit, and at a diffuse vertex (L + V) shadow rays of up to S
-// roots each; its memory traffic is the state, 56 bytes each way per lane
-// and depth (11 MB each way at 512x384), and for the fact kernel 4 + L + V
-// bytes of facts per lane and depth.
+// Design for the GPU:
+// - a group of G lanes (a power of two up to 32) per ray: lane j tests
+//   spheres j, j + G, ..., four at a time, so a ray's chain of S roots
+//   becomes S / 4G; the nearest hit is the least (t, index) over the
+//   group's lanes (shuffles), the shadow scans end at a vote of the group
+//   (tracer.cuh's nearest_group, occluded_group; the collectives name the
+//   group's lanes only). The shading runs the same in every lane of the
+//   group, so no lane of a group leaves the others; lane 0 writes the
+//   state and facts;
+// - packed scan tables in shared memory: a float4 {p, r*r} a sphere, and
+//   a second copy without the emitters for the vacuum (VPL) shadow rays,
+//   32 bytes a sphere in all (complex.scn: 25 KB). The 64-byte scene rows
+//   are read from global memory, only for the hit sphere and the lights;
+// - persistent blocks: as many as the SMs hold at once, each loading its
+//   tables once; each block reads the alive flags of its chunks of 32
+//   contiguous rays, lists the live ones in shared memory and spreads
+//   them over its groups (tracer.cuh's for_each_live_ray), so a dead ray
+//   costs one flag and the groups' loads balance to within one ray;
+// - the tape is mix32 regenerated from site keys or a streamed [K, n]
+//   buffer, indexed by the ray's global lane (tracer.cuh's tape()).
+// The wrapper (ops/pallas_bounce.py) picks G from the sphere count.
 //
 // Plain C interface (no PyTorch headers), loaded with ctypes by
 // ops/_build.py; each launch returns its CUDA error (0 on success).
@@ -69,47 +88,22 @@ struct Params {
   float emission_scale, light_gain;
 };
 
-template <bool kFacts>
-__global__ void bounce_kernel(Params p) {
-  extern __shared__ float smem[];
-  float* scene = smem;
-  float* vpl = scene + p.n_spheres * kCols;
-  uint32_t* keys = reinterpret_cast<uint32_t*>(vpl + p.n_vpl * kCols);
-  for (int i = threadIdx.x; i < p.n_spheres * kCols; i += blockDim.x)
-    scene[i] = p.scene[i];
-  for (int i = threadIdx.x; i < p.n_vpl * kCols; i += blockDim.x)
-    vpl[i] = p.vpl[i];
-  for (int i = threadIdx.x; i < p.n_rows * 4 + p.n_lights; i += blockDim.x)
-    keys[i] = p.keys[i];
-  const int* lights = reinterpret_cast<const int*>(keys + p.n_rows * 4);
-  __syncthreads();
-
-  const int idx = blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= p.n) return;
+// One ray of the launch, traced by its whole group; lane 0 writes.
+template <bool kFacts, int G>
+__device__ __forceinline__ void bounce_ray(const Params& p, const Tables& T,
+                                           const GroupScan<G>& scan,
+                                           int idx) {
   const size_t n = static_cast<size_t>(p.n);
   float* st = p.state + idx;
-  if (!(st[13 * n] > 0.5f)) {   // dead lane: state passes through
-    if (kFacts) {
-      p.hit[idx] = -1;
-      for (int j = 0; j < p.n_lights; ++j) p.occ_light[j * n + idx] = 1;
-      for (int v = 0; v < p.n_vpl; ++v) p.occ_vpl[v * n + idx] = 1;
-    }
-    return;
-  }
-
   const uint32_t gl = static_cast<uint32_t>(idx) + p.lane_offset;
-  const Tables T{scene, vpl, keys, lights, p.tape, p.n_spheres, p.n_vpl,
-                 p.n_lights, p.n_light_slots, p.combine_half, p.lane_offset,
-                 p.lane_total, static_cast<uint32_t>(p.n),
-                 p.emission_scale, p.light_gain, p.direct_only};
   Path s{st[0],     st[n],     st[2 * n], st[3 * n],  st[4 * n],
          st[5 * n], st[9 * n], st[10 * n], st[11 * n], st[12 * n] > 0.5f};
   float rad_r = st[6 * n], rad_g = st[7 * n], rad_b = st[8 * n];
   uint32_t lit[kLitWords] = {0u, 0u, 0u, 0u};
   int hit;
   const int code = eye_step(T, p.row0, gl, s, rad_r, rad_g, rad_b, hit,
-                            kFacts ? lit : nullptr);
-
+                            kFacts ? lit : nullptr, nullptr, scan);
+  if (scan.lane != 0) return;
   st[6 * n] = rad_r;
   st[7 * n] = rad_g;
   st[8 * n] = rad_b;
@@ -138,24 +132,72 @@ __global__ void bounce_kernel(Params p) {
   }
 }
 
+// Dynamic shared memory of a launch: the two packed tables, the VPL
+// window, the tape keys and light ids, the loader's scratch words and the
+// block's list of live rays.
+size_t smem_bytes(const Params& p, int block) {
+  return sizeof(float4) * 2 * static_cast<size_t>(p.n_spheres) +
+         sizeof(float) * static_cast<size_t>(p.n_vpl) * kCols +
+         sizeof(uint32_t) * (4 * static_cast<size_t>(p.n_rows) + p.n_lights +
+                             2 * ((p.n_spheres + 31) / 32) +
+                             live_list_rounds(block) * block + 32);
+}
+
+template <bool kFacts, int G>
+__global__ void bounce_kernel(Params p) {
+  extern __shared__ float4 smem[];
+  float4* spheres = smem;
+  float4* solid = spheres + p.n_spheres;
+  float* vpl = reinterpret_cast<float*>(solid + p.n_spheres);
+  uint32_t* keys = reinterpret_cast<uint32_t*>(vpl + p.n_vpl * kCols);
+  uint32_t* scratch = keys + p.n_rows * 4 + p.n_lights;
+  for (int i = threadIdx.x; i < p.n_vpl * kCols; i += blockDim.x)
+    vpl[i] = p.vpl[i];
+  for (int i = threadIdx.x; i < p.n_rows * 4 + p.n_lights; i += blockDim.x)
+    keys[i] = p.keys[i];
+  const int n_solid = load_scan_tables(p.scene, p.n_spheres, spheres, solid,
+                                       scratch);
+  const int* lights = reinterpret_cast<const int*>(keys + p.n_rows * 4);
+
+  const int lane = static_cast<int>(threadIdx.x) & (G - 1);
+  const GroupScan<G> scan{spheres, solid, p.n_spheres, n_solid,
+                          group_mask<G>(), lane};
+  const Tables T{p.scene, vpl, keys, lights, p.tape, p.n_spheres, p.n_vpl,
+                 p.n_lights, p.n_light_slots, p.combine_half, p.lane_offset,
+                 p.lane_total, static_cast<uint32_t>(p.n),
+                 p.emission_scale, p.light_gain, p.direct_only};
+  const size_t n = static_cast<size_t>(p.n);
+  for_each_live_ray<G>(
+      p.n, reinterpret_cast<int*>(scratch + 2 * ((p.n_spheres + 31) / 32)),
+      [&](int ray) { return p.state[13 * n + ray] > 0.5f; },
+      [&](int ray) {   // a dead ray passes through; its facts: missed, blocked
+        if (!kFacts) return;
+        p.hit[ray] = -1;
+        for (int j = 0; j < p.n_lights; ++j) p.occ_light[j * n + ray] = 1;
+        for (int v = 0; v < p.n_vpl; ++v) p.occ_vpl[v * n + ray] = 1;
+      },
+      [&](int ray) { bounce_ray<kFacts, G>(p, T, scan, ray); });
+}
+
 template <bool kFacts>
-int launch(const Params& p, int block, void* stream) {
+int launch(const Params& p, int block, int group, void* stream) {
   if (p.n <= 0) return 0;
   if (kFacts && p.n_lights + p.n_vpl > 32 * kLitWords)
     return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem = sizeof(float) * (p.n_spheres + p.n_vpl) * kCols +
-                      sizeof(uint32_t) * (4 * p.n_rows + p.n_lights);
-  if (smem > kMaxSmem) return static_cast<int>(cudaErrorInvalidValue);
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        bounce_kernel<kFacts>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
-  const int grid = (p.n + block - 1) / block;
-  bounce_kernel<kFacts><<<grid, block, smem,
-                          static_cast<cudaStream_t>(stream)>>>(p);
-  return static_cast<int>(cudaGetLastError());
+  if (block <= 0 || block > 1024 || block % 32 != 0 ||
+      smem_bytes(p, block) > kMaxSmem)
+    return static_cast<int>(cudaErrorInvalidValue);
+  return with_group(group, [&](auto g) {
+    constexpr int G = decltype(g)::value;
+    const size_t smem = smem_bytes(p, block);
+    int grid = 0, per_sm = 0;
+    const int err = persistent_grid(bounce_kernel<kFacts, G>, p.n, block,
+                                    smem, &grid, &per_sm);
+    if (err != 0) return err;
+    bounce_kernel<kFacts, G><<<grid, block, smem,
+                               static_cast<cudaStream_t>(stream)>>>(p);
+    return static_cast<int>(cudaGetLastError());
+  });
 }
 
 Params common(const void* scene, int n_spheres, const void* vpl, int n_vpl,
@@ -193,12 +235,13 @@ extern "C" int bounce_kernel_launch(
     const void* keys, int n_rows, const void* tape, int n_lights,
     void* state, int n, int row0, int n_light_slots, int combine_half,
     int direct_only, unsigned int lane_offset, unsigned int lane_total,
-    float emission_scale, float light_gain, int block, void* stream) {
+    float emission_scale, float light_gain, int block, int group,
+    void* stream) {
   const Params p = common(scene, n_spheres, vpl, n_vpl, keys, n_rows, tape,
                           n_lights, state, n, row0, n_light_slots,
                           combine_half, direct_only, lane_offset, lane_total,
                           emission_scale, light_gain);
-  return launch<false>(p, block, stream);
+  return launch<false>(p, block, group, stream);
 }
 
 extern "C" int aux_kernel_launch(
@@ -206,7 +249,7 @@ extern "C" int aux_kernel_launch(
     const void* keys, int n_rows, const void* tape, int n_lights,
     void* state, int n, int row0, int n_light_slots, int combine_half,
     int direct_only, unsigned int lane_offset, unsigned int lane_total,
-    float emission_scale, float light_gain, int block, void* hit,
+    float emission_scale, float light_gain, int block, int group, void* hit,
     void* occ_light, void* occ_vpl, void* stream) {
   Params p = common(scene, n_spheres, vpl, n_vpl, keys, n_rows, tape,
                     n_lights, state, n, row0, n_light_slots, combine_half,
@@ -215,5 +258,29 @@ extern "C" int aux_kernel_launch(
   p.hit = static_cast<int*>(hit);
   p.occ_light = static_cast<uint8_t*>(occ_light);
   p.occ_vpl = static_cast<uint8_t*>(occ_vpl);
-  return launch<true>(p, block, stream);
+  return launch<true>(p, block, group, stream);
+}
+
+// The dynamic shared memory and resident blocks per SM of a launch of
+// either kernel at `group` lanes a ray with these table sizes.
+extern "C" int bounce_kernel_resources(int facts, int group, int n_spheres,
+                                       int n_vpl, int n_rows, int n_lights,
+                                       int block, int* smem_bytes_out,
+                                       int* blocks_per_sm_out) {
+  Params p{};
+  p.n_spheres = n_spheres;
+  p.n_vpl = n_vpl;
+  p.n_rows = n_rows;
+  p.n_lights = n_lights;
+  p.n = 1 << 30;
+  const size_t smem = smem_bytes(p, block);
+  *smem_bytes_out = static_cast<int>(smem);
+  return with_group(group, [&](auto g) {
+    constexpr int G = decltype(g)::value;
+    int grid = 0;
+    return facts ? persistent_grid(bounce_kernel<true, G>, p.n, block, smem,
+                                   &grid, blocks_per_sm_out)
+                 : persistent_grid(bounce_kernel<false, G>, p.n, block,
+                                   smem, &grid, blocks_per_sm_out);
+  });
 }

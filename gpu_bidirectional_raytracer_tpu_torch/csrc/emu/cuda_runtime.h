@@ -9,13 +9,17 @@
 //
 // Every CUDA thread of a block is a fiber (ucontext) on the calling thread;
 // the blocks of a grid run one after another. A fiber runs until it waits
-// at a barrier: __syncthreads for the block, and every warp collective
-// (shuffles, ballots, votes) for its warp, so a collective
-// that some lane of a warp never reaches is found (the run aborts) rather
-// than silently summed. Shuffles exchange through two buffers by barrier
-// phase, so each costs one barrier. The float arithmetic is the host's
-// (IEEE single, no contraction); the math library's expf/cosf/sinf may
-// differ from the card's by an ulp.
+// at a barrier: __syncthreads and __syncthreads_or for the block, and every
+// warp collective (shuffles, ballots, votes) for the lanes its mask names,
+// one barrier per mask, so groups of a warp with masks of their own run
+// their collectives apart. A collective that some lane of its mask never
+// reaches is found (the run aborts) rather than silently summed, as is a
+// lane outside the mask that calls it or is read by a shuffle. Shuffles
+// exchange through two buffers by barrier phase, so each costs one
+// barrier. The card has kSms SMs here and holds one block of any kernel at
+// a time (the occupancy query), so a persistent grid is kSms blocks. The
+// float arithmetic is the host's (IEEE single, no contraction); the math
+// library's expf/cosf/sinf may differ from the card's by an ulp.
 
 #pragma once
 
@@ -27,6 +31,7 @@
 #include <cstdlib>
 #include <cstring>
 #include <functional>
+#include <map>
 #include <vector>
 
 #define __global__
@@ -45,6 +50,17 @@ enum : int {
 enum cudaFuncAttribute : int {
   cudaFuncAttributeMaxDynamicSharedMemorySize = 8,
 };
+enum cudaDeviceAttr : int {
+  cudaDevAttrMultiProcessorCount = 16,
+};
+
+struct float4 {
+  float x, y, z, w;
+};
+
+inline float4 make_float4(float x, float y, float z, float w) {
+  return float4{x, y, z, w};
+}
 
 struct dim3 {
   unsigned x = 1, y = 1, z = 1;
@@ -59,15 +75,21 @@ namespace emu {
 constexpr size_t kMaxSmem = 232448;   // H100: 227 KB of dynamic shared memory
 constexpr size_t kStack = 1 << 19;    // bytes of stack per fiber
 constexpr long kMaxSpins = 20000000;  // yields before a barrier is declared stuck
+constexpr int kSms = 3;               // SMs of the emulated card
 
 struct Barrier {
   int count = 0, arrived = 0;
   unsigned gen = 0;
 };
 
-struct Warp {
+// The collectives of one lane mask of a warp.
+struct Sync {
   Barrier bar;
   uint32_t x[2][32];
+};
+
+struct Warp {
+  std::map<unsigned, Sync> sync;   // by mask; nodes never move
 };
 
 struct Fiber {
@@ -81,6 +103,7 @@ struct Block {
   std::vector<Fiber> fibers;
   std::vector<Warp> warps;
   Barrier bar;
+  int any[2];   // __syncthreads_or's result, by barrier phase
   ucontext_t sched;
   int current = 0;
   alignas(16) unsigned char smem[kMaxSmem];
@@ -124,13 +147,24 @@ inline void fiber_main(int i) {
   b->fibers[i].done = true;
 }
 
-// Exchanges one 32-bit word with the warp; returns the buffer row that
-// every lane's word is in after the barrier.
-inline const uint32_t* exchange(uint32_t word) {
-  Warp& w = warp();
-  uint32_t* row = w.x[w.bar.gen & 1];
-  row[threadIdx.x & 31] = word;
-  wait(w.bar);
+inline void need_lane(unsigned mask, unsigned lane, const char* what) {
+  if ((mask >> lane) & 1u) return;
+  std::fprintf(stderr, "emu: thread %u of block %u: %s lane %u outside the "
+                       "mask %08x\n", threadIdx.x, blockIdx.x, what, lane,
+               mask);
+  std::abort();
+}
+
+// Exchanges one 32-bit word with the lanes of `mask`; returns the buffer
+// row that each of their words is in after the barrier.
+inline const uint32_t* exchange(unsigned mask, uint32_t word) {
+  const unsigned lane = threadIdx.x & 31u;
+  need_lane(mask, lane, "a collective called by");
+  Sync& g = warp().sync[mask];
+  g.bar.count = __builtin_popcount(mask);
+  uint32_t* row = g.x[g.bar.gen & 1];
+  row[lane] = word;
+  wait(g.bar);
   return row;
 }
 
@@ -167,7 +201,6 @@ void launch(Kernel kernel, dim3 grid, dim3 block, size_t smem, cudaStream_t,
     blockIdx = dim3(bx);
     b->fibers.assign(n, Fiber{});
     b->warps.assign(n / 32, Warp{});
-    for (auto& w : b->warps) w.bar.count = 32;
     b->bar = Barrier{static_cast<int>(n), 0, 0};
     std::memset(b->smem, 0xff, smem);   // shared memory starts undefined
     for (unsigned i = 0; i < n; ++i) {
@@ -199,21 +232,35 @@ void launch(Kernel kernel, dim3 grid, dim3 block, size_t smem, cudaStream_t,
 
 inline void __syncthreads() { emu::wait(emu::g_block->bar); }
 
-template <typename T>
-T __shfl_sync(unsigned, T v, int src, int = 32) {
-  return emu::from_bits<T>(emu::exchange(emu::bits(v))[src & 31]);
+inline int __syncthreads_or(int pred) {
+  emu::Block* b = emu::g_block;
+  int& any = b->any[b->bar.gen & 1];
+  if (b->bar.arrived == 0) any = 0;   // the phase's first arrival
+  any |= pred ? 1 : 0;
+  emu::wait(b->bar);
+  return any;
 }
 
 template <typename T>
-T __shfl_xor_sync(unsigned, T v, int mask, int = 32) {
-  return emu::from_bits<T>(
-      emu::exchange(emu::bits(v))[(threadIdx.x & 31) ^ (mask & 31)]);
+T __shfl_sync(unsigned m, T v, int src, int = 32) {
+  const uint32_t* row = emu::exchange(m, emu::bits(v));
+  emu::need_lane(m, src & 31, "a shuffle reads");
+  return emu::from_bits<T>(row[src & 31]);
 }
 
-inline unsigned __ballot_sync(unsigned, int pred) {
-  const uint32_t* row = emu::exchange(pred ? 1u : 0u);
+template <typename T>
+T __shfl_xor_sync(unsigned m, T v, int lane_mask, int = 32) {
+  const uint32_t* row = emu::exchange(m, emu::bits(v));
+  const unsigned src = (threadIdx.x & 31u) ^ (lane_mask & 31);
+  emu::need_lane(m, src, "a shuffle reads");
+  return emu::from_bits<T>(row[src]);
+}
+
+inline unsigned __ballot_sync(unsigned m, int pred) {
+  const uint32_t* row = emu::exchange(m, pred ? 1u : 0u);
   unsigned out = 0;
-  for (int i = 0; i < 32; ++i) out |= (row[i] & 1u) << i;
+  for (int i = 0; i < 32; ++i)
+    if ((m >> i) & 1u) out |= (row[i] & 1u) << i;
   return out;
 }
 
@@ -222,6 +269,7 @@ inline int __any_sync(unsigned m, int pred) {
 }
 
 inline int __ffs(int x) { return __builtin_ffs(x); }
+inline int __popc(unsigned x) { return __builtin_popcount(x); }
 inline int __ffs(unsigned x) { return __builtin_ffs(static_cast<int>(x)); }
 inline unsigned __float_as_uint(float x) { return emu::bits(x); }
 inline float __uint_as_float(unsigned x) { return emu::from_bits<float>(x); }
@@ -243,6 +291,17 @@ cudaError_t cudaOccupancyMaxActiveBlocksPerMultiprocessor(
     int* blocks, Kernel, int block_size, size_t smem) {
   *blocks = (block_size > 0 && block_size <= 1024 &&
              smem <= emu::kMaxSmem) ? 1 : 0;
+  return cudaSuccess;
+}
+
+inline cudaError_t cudaGetDevice(int* device) {
+  *device = 0;
+  return cudaSuccess;
+}
+
+inline cudaError_t cudaDeviceGetAttribute(int* value, cudaDeviceAttr attr,
+                                          int) {
+  *value = attr == cudaDevAttrMultiProcessorCount ? emu::kSms : 0;
   return cudaSuccess;
 }
 

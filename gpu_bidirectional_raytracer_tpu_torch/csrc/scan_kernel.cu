@@ -1,4 +1,4 @@
-// Per-bounce sphere-scan kernels for Hopper (sm_90a): one thread per lane.
+// Per-bounce sphere-scan kernels for Hopper (sm_90a).
 //
 // Replaces the two TPU kernels of the per-bounce scan route
 // (integrators/path_tracer.py::trace with scan_backend="pallas"), where the
@@ -8,36 +8,51 @@
 //   from sphere 0, so ties keep the lowest index) with a fused gather of
 //   the winning sphere's attributes: t, the id, p, e, c (nine float planes)
 //   and refl (int32). A miss gives t = 1e20, id 0 and zero attributes.
+//   One thread per lane.
 // - anyhit_kernel_launch: ops/pallas_scan.py::_anyhit_kernel. Whether any
 //   sphere has 0 < t < maxt along a shadow segment; in vacuum mode
-//   emitters do not block (the VPL gather's shadow rays). The scan stops
-//   at the first blocker, which gives the answer of JAX's OR over all
-//   spheres.
+//   emitters do not block (the VPL gather's shadow rays). A group of G
+//   lanes per ray; the scan stops at the round of the first blocker, which
+//   gives the answer of JAX's OR over all spheres.
 //
-// Both reuse tracer.cuh's root (sphere_t, through nearest() and
-// occluded()), the code of the five other kernels, so a scan here sees the
-// bits the bounce kernel sees for the same ray.
+// Both reuse tracer.cuh's root (sphere_t through nearest(); sphere_t4
+// through occluded_group()), the code of the other kernels, so a scan here
+// sees the bits the bounce kernel sees for the same ray.
 //
-// The skip rule. The TPU kernels skip a whole 1024-lane tile when none of
+// The skip rules. The TPU kernels skip a whole 1024-lane tile when none of
 // its lanes is alive (nearest) or active (any-hit); a skipped lane reports
-// a miss or no occlusion. Here the unit is a warp (32 lanes, __any_sync),
-// and a block with no live lane also skips the copy of the sphere table.
-// Lanes of a live warp are scanned whether they are alive or not, as the
-// TPU kernel scans every lane of a live tile; their outputs are those of
-// the plain version (ops/pallas_scan.py, tile=32) on every lane. Once the
-// tracer compacts the live lanes to the front (scan_compact), whole warps
-// go dead at depth.
+// a miss or no occlusion. The nearest kernel's unit is a warp (32 lanes,
+// __any_sync), and a block with no live lane also skips the copy of the
+// sphere table; lanes of a live warp are scanned whether they are alive or
+// not, as the TPU kernel scans every lane of a live tile, so its outputs
+// are those of the plain version (ops/pallas_scan.py, tile=32) on every
+// lane. The any-hit kernel's unit is the ray: an inactive lane reports
+// unoccluded, the plain version with tile=1. Active lanes do not depend on
+// the unit, and every caller masks with `active`.
 //
-// Design for the GPU: the sphere table [S, 16] (complex.scn: 783 spheres,
-// 50,112 bytes) sits in dynamic shared memory, opted in above 48 KB with
-// cudaFuncSetAttribute; a table above the block's 227 KB makes the launch
-// fail with an error. Rays come as the tracer holds them, [n, 3] origins
-// and directions; outputs are planes, so a warp's stores are contiguous.
+// Bound. The nearest kernel: FP32 ALU, S roots per live lane (about 20
+// operations each); bytes 25 in and 48 out per lane. The any-hit kernel:
+// the bytes, 29 in and 1 out per lane, since few lanes are active past the
+// first depth (45.6% at the first, under 10% after, on complex.scn) and
+// each active ray tests spheres only up to its first blocker; what holds
+// it is the latency of one ray's dependent chain of roots.
 //
-// Bound: FP32 ALU. Per live lane, the nearest kernel evaluates S roots and
-// the any-hit kernel up to S roots (to the first blocker), about 20
-// operations each; the bytes are 25 in and 48 out per lane for the nearest
-// kernel, 29 in and 1 out for the any-hit kernel.
+// Design for the GPU. The nearest kernel: the sphere table [S, 16]
+// (complex.scn: 783 spheres, 50,112 bytes) sits in dynamic shared memory,
+// opted in above 48 KB with cudaFuncSetAttribute; rays come as the tracer
+// holds them, [n, 3] origins and directions; outputs are planes, so a
+// warp's stores are contiguous. The any-hit kernel: G lanes per ray (a
+// power of two up to 32) over a packed table in shared memory, a float4
+// {p, r*r} a sphere (in vacuum mode the non-emitters only), 12.5 KB for
+// complex.scn; lane j tests spheres j, j + G, ..., four at a time, and
+// the group votes after each four rounds (tracer.cuh's occluded_group),
+// so a ray's chain of S roots becomes S / 4G. Persistent blocks of 1,024
+// threads (the wrapper's default), as many as the
+// SMs hold at once, load the table once each; each reads the active
+// flags of its chunks of 32 contiguous segments, lists the active ones
+// and spreads them over its groups (tracer.cuh's for_each_live_ray), so
+// an inactive segment costs one flag and one store. A table above the
+// block's 227 KB makes a launch fail with an error.
 //
 // Plain C interface (no PyTorch headers), loaded with ctypes by
 // ops/_build.py; each launch returns its CUDA error (0 on success).
@@ -116,31 +131,44 @@ __global__ void nearest_kernel(const float* __restrict__ scene_g,
   refl_out[idx] = hit ? static_cast<int>(w[10]) : 0;
 }
 
+template <int G>
 __global__ void anyhit_kernel(const float* __restrict__ scene_g,
                               int n_spheres, const float* __restrict__ o,
                               const float* __restrict__ d,
                               const float* __restrict__ maxt,
                               const uint8_t* __restrict__ active, int n,
                               int vacuum, uint8_t* __restrict__ occ) {
-  extern __shared__ float table[];
-  const int idx = blockIdx.x * blockDim.x + threadIdx.x;
-  const bool in = idx < n;
-  const bool act = in && active[idx] != 0;
-  if (!__syncthreads_or(act)) {    // no active lane in the block
-    if (in) occ[idx] = 0;
-    return;
-  }
-  load_table(table, scene_g, n_spheres);
-  if (!__any_sync(kWarp, act)) {   // no active lane in the warp
-    if (in) occ[idx] = 0;
-    return;
-  }
-  if (!in) return;
-  occ[idx] = occluded(table, n_spheres, o[3 * idx], o[3 * idx + 1],
-                      o[3 * idx + 2], d[3 * idx], d[3 * idx + 1],
-                      d[3 * idx + 2], maxt[idx], vacuum != 0)
-                 ? 1
-                 : 0;
+  extern __shared__ float4 packed[];
+  float4* spheres = packed;             // [S]
+  float4* solid = spheres + n_spheres;  // [S] in vacuum mode
+  uint32_t* scratch =
+      reinterpret_cast<uint32_t*>(vacuum ? solid + n_spheres : solid);
+  const int n_solid = load_scan_tables(scene_g, n_spheres, spheres,
+                                       vacuum ? solid : nullptr, scratch);
+  const float4* table = vacuum ? solid : spheres;
+  const int n_table = vacuum ? n_solid : n_spheres;
+
+  const int lane = static_cast<int>(threadIdx.x) & (G - 1);
+  const unsigned mask = group_mask<G>();
+  for_each_live_ray<G>(
+      n, reinterpret_cast<int*>(scratch + 2 * ((n_spheres + 31) / 32)),
+      [&](int ray) { return active[ray] != 0; },
+      [&](int ray) { occ[ray] = 0; },
+      [&](int ray) {
+        const bool blocked = occluded_group<G>(
+            table, n_table, mask, lane, o[3 * ray], o[3 * ray + 1],
+            o[3 * ray + 2], d[3 * ray], d[3 * ray + 1], d[3 * ray + 2],
+            maxt[ray]);
+        if (lane == 0) occ[ray] = blocked ? 1 : 0;
+      });
+}
+
+// Dynamic shared memory of an any-hit launch: the packed table (and its
+// vacuum copy), the loader's scratch words, the block's list of rays.
+size_t anyhit_smem(int n_spheres, int vacuum, int block) {
+  return sizeof(float4) * (vacuum ? 2 : 1) * static_cast<size_t>(n_spheres) +
+         sizeof(uint32_t) * (2 * ((n_spheres + 31) / 32) +
+                             live_list_rounds(block) * block + 32);
 }
 
 // Checks the launch shape and opts in to the table's shared memory.
@@ -182,16 +210,38 @@ extern "C" int anyhit_kernel_launch(const void* scene, int n_spheres,
                                     const void* o, const void* d,
                                     const void* maxt, const void* active,
                                     int n, int vacuum, void* occ, int block,
-                                    void* stream) {
+                                    int group, void* stream) {
   if (n <= 0) return 0;
-  size_t smem;
-  const int err = prepare(anyhit_kernel, n_spheres, block, smem);
-  if (err != 0) return err;
-  anyhit_kernel<<<(n + block - 1) / block, block, smem,
-                  static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(scene), n_spheres,
-      static_cast<const float*>(o), static_cast<const float*>(d),
-      static_cast<const float*>(maxt), static_cast<const uint8_t*>(active),
-      n, vacuum, static_cast<uint8_t*>(occ));
-  return static_cast<int>(cudaGetLastError());
+  const size_t smem = anyhit_smem(n_spheres, vacuum, block);
+  if (n_spheres < 0 || block <= 0 || block > 1024 || block % 32 != 0 ||
+      smem > kMaxSmem)
+    return static_cast<int>(cudaErrorInvalidValue);
+  return with_group(group, [&](auto g) {
+    constexpr int G = decltype(g)::value;
+    int grid = 0, per_sm = 0;
+    const int err = persistent_grid(anyhit_kernel<G>, n, block, smem, &grid,
+                                    &per_sm);
+    if (err != 0) return err;
+    anyhit_kernel<G><<<grid, block, smem,
+                       static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const float*>(scene), n_spheres,
+        static_cast<const float*>(o), static_cast<const float*>(d),
+        static_cast<const float*>(maxt), static_cast<const uint8_t*>(active),
+        n, vacuum, static_cast<uint8_t*>(occ));
+    return static_cast<int>(cudaGetLastError());
+  });
+}
+
+// The dynamic shared memory and resident blocks per SM of an any-hit
+// launch at `group` lanes a segment.
+extern "C" int anyhit_kernel_resources(int group, int n_spheres, int vacuum,
+                                       int block, int* smem_bytes_out,
+                                       int* blocks_per_sm_out) {
+  const size_t smem = anyhit_smem(n_spheres, vacuum, block);
+  *smem_bytes_out = static_cast<int>(smem);
+  return with_group(group, [&](auto g) {
+    int grid = 0;
+    return persistent_grid(anyhit_kernel<decltype(g)::value>, 1 << 30,
+                           block, smem, &grid, blocks_per_sm_out);
+  });
 }

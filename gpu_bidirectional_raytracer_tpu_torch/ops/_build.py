@@ -125,7 +125,7 @@ _BOUNCE_ARGS = _TABLE_ARGS + [                    # shared by the bounce pair
     ctypes.c_int, ctypes.c_int,                   # combine_half, direct_only
     ctypes.c_uint, ctypes.c_uint,                 # lane_offset, lane_total
     ctypes.c_float, ctypes.c_float,               # emission_scale, light_gain
-    ctypes.c_int,                                 # threads per block
+    ctypes.c_int, ctypes.c_int,                   # threads per block, G
 ]
 
 # Entry points: name -> (source, C function, argument types).
@@ -168,6 +168,14 @@ _ENTRIES = {
         ctypes.c_void_p, ctypes.c_void_p,         # occlusion [L, n], [V, n]
         ctypes.c_void_p,                          # stream
     ]),
+    "bounce_kernel_resources": ("bounce_kernel", "bounce_kernel_resources", [
+        ctypes.c_int, ctypes.c_int,               # facts, G
+        ctypes.c_int, ctypes.c_int,               # n_spheres, n_vpl
+        ctypes.c_int, ctypes.c_int,               # n_rows, n_lights
+        ctypes.c_int,                             # threads per block
+        ctypes.POINTER(ctypes.c_int),             # dynamic shared bytes out
+        ctypes.POINTER(ctypes.c_int),             # blocks per SM out
+    ]),
     "nearest_kernel": ("scan_kernel", "nearest_kernel_launch", [
         ctypes.c_void_p, ctypes.c_int,            # scene, n_spheres
         ctypes.c_void_p, ctypes.c_void_p,         # o, d [n, 3]
@@ -182,7 +190,14 @@ _ENTRIES = {
         ctypes.c_void_p, ctypes.c_void_p,         # maxt [n], active [n] bool
         ctypes.c_int, ctypes.c_int,               # n, vacuum
         ctypes.c_void_p,                          # occluded [n] bool
-        ctypes.c_int, ctypes.c_void_p,            # threads per block, stream
+        ctypes.c_int, ctypes.c_int,               # threads per block, G
+        ctypes.c_void_p,                          # stream
+    ]),
+    "anyhit_kernel_resources": ("scan_kernel", "anyhit_kernel_resources", [
+        ctypes.c_int, ctypes.c_int,               # G, n_spheres
+        ctypes.c_int, ctypes.c_int,               # vacuum, threads per block
+        ctypes.POINTER(ctypes.c_int),             # dynamic shared bytes out
+        ctypes.POINTER(ctypes.c_int),             # blocks per SM out
     ]),
 }
 

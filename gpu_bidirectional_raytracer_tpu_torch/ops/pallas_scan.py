@@ -6,17 +6,20 @@ Pallas kernels carry the scan route of `path_tracer.trace`
 depth runs its three sphere scans as kernels, the nearest hit with a fused
 gather of the hit sphere's attributes (`nearest_tiles`) and the any-hit of
 the light and VPL shadow segments (`anyhit_tiles`, the VPL one in vacuum
-mode, where emitters do not block). Here they are ``nearest_kernel`` and
-``anyhit_kernel``, CUDA kernels for Hopper, one thread per lane.
+mode, where emitters do not block). Here they are ``nearest_kernel``, a
+CUDA kernel for Hopper with one thread per lane, and ``anyhit_kernel``,
+one with a group of lanes of a warp per segment (`group_size`).
 
 Both skip a whole tile of lanes when none of them is alive (nearest) or
 active (any-hit); a skipped lane reports a miss or no occlusion. The TPU
-tile is 1024 lanes; the kernels' is a warp, `TILE` lanes. The plain
-versions (`nearest_plain`, `anyhit_plain`) apply the same rule to the
-full all-pairs scan of `integrators.intersect` for any ``tile``, so on the
-card a kernel and its plain version with ``tile=TILE`` give the same bits
-on every lane, and with ``tile=1024`` the plain version gives JAX's.
-Outputs on live or active lanes do not depend on the tile.
+tile is 1024 lanes; the nearest kernel's is a warp, `TILE` lanes, and the
+any-hit kernel's one lane, `ANYHIT_TILE`: an inactive lane reports
+unoccluded. The plain versions (`nearest_plain`, `anyhit_plain`) apply the
+same rule to the full all-pairs scan of `integrators.intersect` for any
+``tile``, so on the card a kernel and its plain version with its tile
+give the same bits on every lane, and with ``tile=1024`` the plain
+version gives JAX's. Outputs on live or active lanes do not depend on the
+tile, and every caller masks with them.
 
 Forward only, as in JAX: a wrapper raises when an input requires grad
 under autograd. Given CPU tensors it runs the plain version; given CUDA
@@ -26,6 +29,8 @@ adds one to ``LAUNCHES["nearest_kernel"]`` or ``LAUNCHES["anyhit_kernel"]``.
 
 from __future__ import annotations
 
+import ctypes
+
 import torch
 from torch import Tensor
 
@@ -34,11 +39,30 @@ from gpu_bidirectional_raytracer_tpu_torch.integrators import intersect as isect
 from gpu_bidirectional_raytracer_tpu_torch.ops import pallas_trace
 from gpu_bidirectional_raytracer_tpu_torch.ops.pallas_trace import LAUNCHES
 
-TILE = 32               # lanes the kernels skip together: one warp
+TILE = 32               # lanes the nearest kernel skips together: a warp
+ANYHIT_TILE = 1         # the any-hit kernel's: each lane alone
 # Threads per block: complex.scn's 50 KB sphere table lets 4 blocks share
-# an SM, so 256 threads keep 1,024 resident (the bounce kernel's choice).
+# an SM, so 256 threads keep 1,024 resident (the nearest kernel).
 BLOCK = 256
+# The any-hit kernel's threads per block: each block loads the sphere
+# table once, and 1,024 threads load it for as many segments as four
+# blocks of 256 would. chip_smoke.py times both.
+ANYHIT_BLOCK = 1024
+GROUP_SIZES = (1, 4, 8, 16, 32)   # the lanes a ray the kernels take
+# Spheres each lane of the any-hit kernel's group keeps at least: on
+# complex.scn (783) the group is 32 lanes, on Cornell (9) one.
+ANYHIT_PER_LANE = 16
 _BIG = 1e20             # miss marker of the nearest scan
+
+
+def group_size(n_spheres: int, per_lane: int) -> int:
+    """Lanes of a warp per ray for a scan of ``n_spheres`` spheres: the
+    largest power of two up to 32 that leaves each lane at least
+    ``per_lane`` spheres (a lone lane runs no collective)."""
+    g = 1
+    while g < 32 and n_spheres >= 2 * g * per_lane:
+        g *= 2
+    return g
 
 
 def _forward_only(scene: Scene, *tensors: Tensor) -> None:
@@ -76,7 +100,7 @@ def nearest_plain(scene: Scene, o: Tensor, d: Tensor, alive: Tensor,
 
 def anyhit_plain(scene: Scene, o: Tensor, d: Tensor, maxt: Tensor,
                  active: Tensor, vacuum: bool = False,
-                 tile: int = TILE) -> Tensor:
+                 tile: int = ANYHIT_TILE) -> Tensor:
     """Plain version of `anyhit_tiles`: the all-pairs any-hit, with the
     lanes of tiles that hold no active lane reported unoccluded."""
     test = isect.intersect_p_vacuum if vacuum else isect.intersect_p
@@ -137,13 +161,21 @@ def prepare_nearest(scene: Scene, o: Tensor, d: Tensor,
     return ScanLaunch("nearest_kernel", [table, o, d, alive], outs, (
         table.data_ptr(), table.shape[0], o.data_ptr(), d.data_ptr(),
         alive.data_ptr(), n, *(x.data_ptr() for x in outs), BLOCK,
-        torch.cuda.current_stream(dev).cuda_stream))
+        pallas_trace.current_stream(dev)))
 
 
 def prepare_anyhit(scene: Scene, o: Tensor, d: Tensor, maxt: Tensor,
-                   active: Tensor, vacuum: bool = False) -> ScanLaunch:
-    """The launch of ``anyhit_kernel`` on these segments; its output is
-    ``(occluded [N] bool,)``."""
+                   active: Tensor, vacuum: bool = False,
+                   block: int = ANYHIT_BLOCK,
+                   group: int | None = None) -> ScanLaunch:
+    """The launch of ``anyhit_kernel`` on these segments, ``group`` lanes
+    a segment (by default `group_size` with `ANYHIT_PER_LANE`); its output
+    is ``(occluded [N] bool,)``."""
+    if group is None:
+        group = group_size(scene.num_spheres, ANYHIT_PER_LANE)
+    if group not in GROUP_SIZES or block not in (32, 64, 128, 256, 512,
+                                                 1024):
+        raise ValueError(f"any-hit launch of {block} threads, G = {group}")
     n, dev = o.shape[0], scene.device
     o, d, maxt, active = _lanes(n, dev, o, d, maxt, active)
     table = pallas_trace._scene_table(scene)
@@ -151,7 +183,25 @@ def prepare_anyhit(scene: Scene, o: Tensor, d: Tensor, maxt: Tensor,
     return ScanLaunch("anyhit_kernel", [table, o, d, maxt, active], (occ,), (
         table.data_ptr(), table.shape[0], o.data_ptr(), d.data_ptr(),
         maxt.data_ptr(), active.data_ptr(), n, int(vacuum), occ.data_ptr(),
-        BLOCK, torch.cuda.current_stream(dev).cuda_stream))
+        block, group, pallas_trace.current_stream(dev)))
+
+
+def anyhit_resources(scene: Scene, vacuum: bool, block: int = ANYHIT_BLOCK,
+                     group: int | None = None) -> dict:
+    """``{"smem_bytes", "blocks_per_sm"}`` of an ``anyhit_kernel`` launch
+    on this scene: its dynamic shared memory and resident blocks per SM
+    (CUDA's occupancy calculator). Needs a card."""
+    from gpu_bidirectional_raytracer_tpu_torch.ops import _build
+
+    if group is None:
+        group = group_size(scene.num_spheres, ANYHIT_PER_LANE)
+    smem, blocks = ctypes.c_int(), ctypes.c_int()
+    rc = _build.load("anyhit_kernel_resources")(
+        group, scene.num_spheres, int(vacuum), block, ctypes.byref(smem),
+        ctypes.byref(blocks))
+    if rc != 0:
+        raise RuntimeError(f"anyhit_kernel_resources: CUDA error {rc}")
+    return {"smem_bytes": smem.value, "blocks_per_sm": blocks.value}
 
 
 def nearest_tiles(scene: Scene, o: Tensor, d: Tensor, alive: Tensor):
@@ -172,9 +222,9 @@ def nearest_tiles(scene: Scene, o: Tensor, d: Tensor, alive: Tensor):
 def anyhit_tiles(scene: Scene, o: Tensor, d: Tensor, maxt: Tensor,
                  active: Tensor, vacuum: bool = False) -> Tensor:
     """Whether a sphere blocks each shadow segment ``o + t d``, ``0 < t <
-    maxt``: ``[N]`` bool; with ``vacuum``, emitters do not block. Lanes of
-    a warp with no ``active`` lane report unoccluded; callers mask them
-    out, as they do for the all-pairs scan."""
+    maxt``: ``[N]`` bool; with ``vacuum``, emitters do not block. Lanes
+    that are not ``active`` report unoccluded; callers mask them out, as
+    they do for the all-pairs scan."""
     _forward_only(scene, o, d, maxt)
     if scene.device.type == "cpu":
         return anyhit_plain(scene, o, d, maxt, active, vacuum)

@@ -60,6 +60,12 @@ def reset_launches() -> None:
         LAUNCHES[name] = 0
 
 
+def current_stream(dev) -> int:
+    """The handle of PyTorch's current stream on ``dev``, which the bounce
+    and scan kernels launch on."""
+    return torch.cuda.current_stream(dev).cuda_stream
+
+
 def _to_device(values: list, dtype: torch.dtype, device) -> Tensor:
     """A small host table copied without blocking the host (pinned)."""
     host = torch.tensor(values, dtype=dtype)

@@ -11,9 +11,10 @@ tests/test_pallas.py does (VPLs on the walls sit on a shadow-ray knife
 edge where JAX's own paths disagree). Then the port's own invariants:
 compaction and lane windows change no bit, and the route is forward only.
 
-The plain versions take the kernels' skip unit, a warp of 32 lanes, and
-JAX's 1024-lane tile with ``tile=1024``; with JAX's tile they equal JAX's
-kernels on every lane (hit, id, attributes, refl and occlusion exactly).
+The plain versions take the kernels' skip units, a warp of 32 lanes for
+the nearest hit and one lane for the any-hit, and JAX's 1024-lane tile
+with ``tile=1024``; with JAX's tile they equal JAX's kernels on every lane
+(hit, id, attributes, refl and occlusion exactly).
 ``t`` differs in its last bits: JAX's interpret mode rounds the quadratic
 otherwise, and the cancellation in ``b * b - |op|^2 + r^2`` leaves a few
 ulps of the scene's coordinate scale, more near grazing (measured up to
@@ -159,11 +160,11 @@ def test_nearest_matches_jax_kernel(scan_case, tile):
     assert not (p[dead].any() or e[dead].any() or c[dead].any())
 
 
-@pytest.mark.parametrize("tile", [1024, tscan.TILE])
+@pytest.mark.parametrize("tile", [1024, tscan.ANYHIT_TILE])
 @pytest.mark.parametrize("vacuum", [False, True], ids=["shadow", "vacuum"])
 def test_anyhit_matches_jax_kernel(scan_case, vacuum, tile):
     scene, (o, d, maxt, live), _, occ, _ = scan_case
-    if tile == tscan.TILE:
+    if tile == tscan.ANYHIT_TILE:
         got = tscan.anyhit_tiles(scene, o, d, maxt, live, vacuum=vacuum)
     else:
         got = tscan.anyhit_plain(scene, o, d, maxt, live, vacuum, tile=tile)
@@ -172,6 +173,8 @@ def test_anyhit_matches_jax_kernel(scan_case, vacuum, tile):
     np.testing.assert_array_equal(got[lanes], occ[vacuum][lanes])
     assert 0.1 < got[lanes].mean() < 0.9
     assert not got[:1024].any()
+    if tile == tscan.ANYHIT_TILE:    # each inactive lane: unoccluded
+        assert not got[~live.numpy()].any()
     if vacuum:       # emitters block shadow rays, not vacuum rays
         shadow = tscan.anyhit_plain(scene, o, d, maxt, live,
                                     tile=tile).numpy()
