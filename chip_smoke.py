@@ -71,10 +71,10 @@ reads are set to 0 just before it drives its path.
 8. ``scan_vs_plain``: at 64x48, depth 7, on complex.scn (mix32 and
    threefry keys) and on cornell.scn, with VPLs: every scan of a plain
    trace of the scan route, with the dead lanes and dead warps of its
-   depths, through ``nearest_kernel`` and ``anyhit_kernel`` (both modes,
-   every G) and their plain versions (the any-hit one with its tile of
-   one lane), equal bit for bit on every lane and on a ragged prefix; two
-   launches with the same bits; the whole trace
+   depths, through ``nearest_kernel`` and ``anyhit_kernel`` (both modes;
+   each kernel at every G) and their plain versions (both with their tile
+   of one lane), equal bit for bit on every lane and on a ragged prefix;
+   two launches with the same bits; the whole trace
    through the kernels against the full-scan plain tracer under the
    protocol, and equal to the plain route bit for bit; compaction equal
    bit for bit;
@@ -136,12 +136,18 @@ reads are set to 0 just before it drives its path.
    for the loss and the e and c gradients;
 16. ``kernels``: one JSON line with a row per kernel (seven): launches on
    its path, ms per launch, the plain version's ms, and the bound; the
-   bounce kernel's row also times 128, 256 and 512 threads per block; the
+   eye-path and bounce kernels' rows also time 128, 256 and 512 threads
+   per block (``block_ms``; the eye-path row with its resident blocks per
+   SM at each); the
    bounce and fact kernels' rows give each depth's time alone on the state
    the pass brings it (``ms_per_depth``), the live share per depth and
    each depth's time at every G (``group_ms``); the scan kernels' rows
-   give each depth's time, without and with compaction, and the any-hit
-   row each launch's time at every G (``group_ms``); the adjoint kernels'
+   give each depth's time, without and with compaction, each launch's
+   time at every G (``group_ms``), a launch with no live lane
+   (``idle_ms``) and the resources (dynamic shared memory, resident blocks
+   per SM); the kernels of the main paths are timed by their device time
+   in ``torch.profiler``'s trace (``device_ms``), the adjoint kernels by
+   CUDA events; the adjoint kernels'
    rows their carrier
    instantiations' ``vis_ms``, ``vis_launches``, ``vis_bound_ms`` (the
    carrier's blocker terms counted by ``with_stats``) and
@@ -212,6 +218,7 @@ COMPLEX_STEPS = 3
 COMPLEX_GRAD_W, COMPLEX_GRAD_H = 128, 96
 BOUNCE_BLOCKS = (128, 256, 512)
 ANYHIT_BLOCKS = (256, 1024)
+TRACE_BLOCKS = (128, 256, 512)
 # The per-bounce scan route on complex.scn at 512x384 (tools/
 # bench_complex.py), and the matmul form's training step there.
 SCAN_SAMPLES, MXU_STEPS = 8, 2
@@ -1821,12 +1828,19 @@ def phase_scan_vs_plain(device) -> dict:
             full = _same_bits(*_scan_pair(scene, kind, args, vacuum))
             ragged = _same_bits(*_scan_pair(scene, kind, args, vacuum,
                                             args[0].shape[0] - 13))
-            groups = full[0]
-            if kind == "anyhit":       # every G against the plain version
+            # Every G against the plain version, on every lane.
+            if kind == "anyhit":
                 want = ps.anyhit_plain(scene, *args, vacuum)
                 groups = all(torch.equal(ps.prepare_anyhit(
                     scene, *args, vacuum, group=g)()[0], want)
                     for g in ps.GROUP_SIZES)
+            else:
+                want = ps.nearest_plain(scene, *args)
+                groups = all(_same_bits((
+                    t < 1e20, t, i, a[0:3].T, a[3:6].T, a[6:9].T, r), want)[0]
+                    for g in ps.GROUP_SIZES
+                    for t, i, a, r in [ps.prepare_nearest(scene, *args,
+                                                          group=g)()])
             per_call.append({
                 "kind": kind + ("_vacuum" if vacuum else ""),
                 "lanes": args[0].shape[0],
@@ -2142,14 +2156,25 @@ def _scan_rows(svp: dict, spath: dict) -> list:
             launch = (ps.prepare_nearest(scene, *args) if kind == "nearest"
                       else ps.prepare_anyhit(scene, *args, vacuum))
             ms[compact][kind + ("_vacuum" if vacuum else "")].append(
-                cuda_ms(launch, reps=20) if kind == "nearest"
-                else device_ms(launch, 20, "anyhit_kernel"))
+                device_ms(launch, 20, kind + "_kernel"))
     live = {"nearest": [], "anyhit": [], "anyhit_vacuum": []}
     plain_ms = {"nearest": [], "anyhit": []}
     group_ms = {g: {"shadow": [], "vacuum": []} for g in ps.GROUP_SIZES}
+    near_group_ms = {g: [] for g in ps.GROUP_SIZES}
+    near_event_ms = []
     idle_ms = {}     # a launch with no active segment, each mode
     block_ms = {b: [] for b in ANYHIT_BLOCKS}
     for kind, args, vacuum in calls[False]:
+        if kind == "nearest":
+            for g in ps.GROUP_SIZES:
+                near_group_ms[g].append(device_ms(ps.prepare_nearest(
+                    scene, *args, group=g), 5, "nearest_kernel"))
+            near_event_ms.append(cuda_ms(ps.prepare_nearest(scene, *args),
+                                         reps=20))
+            if "nearest" not in idle_ms:   # no live lane
+                idle_ms["nearest"] = device_ms(ps.prepare_nearest(
+                    scene, *args[:2], torch.zeros_like(args[2])), 20,
+                    "nearest_kernel")
         if kind == "anyhit":
             for b in ANYHIT_BLOCKS:
                 block_ms[b].append(device_ms(ps.prepare_anyhit(
@@ -2185,6 +2210,7 @@ def _scan_rows(svp: dict, spath: dict) -> list:
     any_bytes = 30 * n * (len(li) + n_vpl) // 2
     src = "gpu_bidirectional_raytracer_tpu_torch/csrc/scan_kernel.cu"
     any_ms = {c: ms[c]["anyhit"] + ms[c]["anyhit_vacuum"] for c in ms}
+    near_res = ps.nearest_resources(scene)
     return [{
         "name": "nearest_kernel",
         "route": "cuda",
@@ -2199,7 +2225,13 @@ def _scan_rows(svp: dict, spath: dict) -> list:
         "ms_per_depth": ms[False]["nearest"],
         "ms_compacted": mean(ms[True]["nearest"]),
         "ms_compacted_per_depth": ms[True]["nearest"],
+        "event_ms": mean(near_event_ms),
         "live_frac_per_depth": live["nearest"],
+        "group": ps.group_size(scene.num_spheres, ps.PER_LANE),
+        "group_ms": near_group_ms,
+        "idle_ms": idle_ms["nearest"],
+        "resources": near_res,
+        "blocks_per_sm": near_res["blocks_per_sm"],
         "work": {"extension_segments": stats["extension_segments"],
                  "spheres": s, "fp32_ops_per_launch": near_ops,
                  "bytes": near_bytes,
@@ -2273,8 +2305,17 @@ def phase_kernels(main: dict, train: dict, max_abs_err: float,
     vpls, vi = progressive.vpl_update(scene, state, cfg, li)
     args = (scene, cfg, li, r.camera, w, h, state.key, state.sample)
     kw = dict(vpls=vpls, vlp_index=vi)
-    # The kernel alone: tables built once, launched 50 times.
-    ms = cuda_ms(ops.prepare_camera_launch(*args, **kw), reps=50)
+    # The kernel alone: tables built once, launched 30 times (device time,
+    # and CUDA events around the launches), and at each block size with
+    # its resident blocks per SM.
+    ms = device_ms(ops.prepare_camera_launch(*args, **kw), 30, "trace_kernel")
+    event_ms = cuda_ms(ops.prepare_camera_launch(*args, **kw), reps=30)
+    block_ms = {b: device_ms(ops.prepare_camera_launch(*args, **kw, block=b),
+                             10, "trace_kernel") for b in TRACE_BLOCKS}
+    tabs = ops.launch_tables(scene, cfg, li, state.key, state.sample, vpls,
+                             vi, n, cam_jitter=True)
+    trace_res = {b: ops.trace_resources(*tabs, len(li), b)
+                 for b in TRACE_BLOCKS}
     plain_ms = cuda_ms(lambda: ops.trace_camera_plain(*args, **kw), reps=5,
                        warmup=1)
 
@@ -2306,6 +2347,11 @@ def phase_kernels(main: dict, train: dict, max_abs_err: float,
         "plain_ms": plain_ms,
         **_bound(ops_total, bytes_total),
         "library_ms": None,
+        "event_ms": event_ms,
+        "block": ops.BLOCK,
+        "block_ms": block_ms,
+        "blocks_per_sm": trace_res[ops.BLOCK]["blocks_per_sm"],
+        "resources": trace_res,
         "work": {**stats, "fp32_ops": ops_total, "bytes": bytes_total},
     }]
 

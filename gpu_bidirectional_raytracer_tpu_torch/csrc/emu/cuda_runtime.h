@@ -275,6 +275,11 @@ inline unsigned __float_as_uint(float x) { return emu::bits(x); }
 inline float __uint_as_float(unsigned x) { return emu::from_bits<float>(x); }
 inline float __fmaf_rn(float a, float b, float c) { return fmaf(a, b, c); }
 
+template <typename T>
+T __ldg(const T* p) {   // the read-only path: a plain load here
+  return *p;
+}
+
 template <typename Kernel>
 cudaError_t cudaFuncSetAttribute(Kernel, cudaFuncAttribute attr, int value) {
   if (attr == cudaFuncAttributeMaxDynamicSharedMemorySize) {

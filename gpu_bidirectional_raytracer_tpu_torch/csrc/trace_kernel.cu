@@ -18,19 +18,30 @@
 // - a lane whose path has ended leaves the bounce loop (the plain version
 //   masks such lanes, with the same result), and each branch of the scatter
 //   and each shadow ray is evaluated only where its result is used;
-// - the sphere table, the VPL window and the tape keys sit in shared memory;
+// - the scans read tracer.cuh's packed tables in shared memory, a float4
+//   {p, r*r} a sphere, and for the VPLs' vacuum shadow rays a copy without
+//   the emitters, so a root takes one 16-byte shared load and no emitter
+//   test; each thread takes four spheres at a time, four independent roots
+//   in flight, in index order with strict < (GroupScan<1>), so the
+//   nearest hit is the serial scan's and the any-hit its OR. The [S, 16]
+//   scene table beside them serves the shading, the VPL window and the
+//   tape keys sit in shared memory too;
 // - loops over depth, spheres, lights and VPLs stay rolled (#pragma unroll 1)
 //   so the build takes seconds.
 // Expressions follow the plain version's operation order, and the library is
 // built with -fmad=false and IEEE division and square root, so on the card
-// the kernel and the plain version agree bit for bit on almost every pixel.
-// The depth step is tracer.cuh's eye_step, shared with the adjoint
-// (grad_kernel.cu), whose forward sweep therefore sees the same bits.
+// the kernel and the plain version agree bit for bit. The depth step is
+// tracer.cuh's eye_step, shared with the adjoint (grad_kernel.cu, which
+// scans per thread over the scene table: the same roots, the same bits).
 //
 // Bound: FP32 ALU. Per live ray segment it evaluates S sphere roots, and at
-// each diffuse vertex (L + V) shadow rays of S roots more; its memory traffic
-// is the 12-byte radiance of each pixel (about 3 MB at 512x512) and a few KB
-// of tables.
+// each diffuse vertex (L + V) shadow rays of up to S roots more; its memory
+// traffic is the 12-byte radiance of each pixel (about 3 MB at 512x512) and
+// a few KB of tables. Without contraction into FMA and with IEEE square
+// roots a root takes 47.5 SASS instructions in a four-root round, not the
+// 20 operations the FLOP bound counts; on one H100 the roots' issue time is
+// still well under the kernel's, which next-event estimation (about half)
+// and warp divergence (about a fifth) hold (PERF.md).
 //
 // Plain C interface (no PyTorch headers), loaded with ctypes by
 // ops/_build.py; the launch returns cudaGetLastError().
@@ -59,19 +70,33 @@ struct Params {
   float emission_scale, light_gain;
 };
 
+// Dynamic shared memory of a launch: the two packed scan tables, the scene
+// table, the VPL window, the tape keys and light ids, the loader's scratch.
+size_t smem_bytes(int n_spheres, int n_vpl, int n_rows, int n_lights) {
+  return sizeof(float4) * 2 * static_cast<size_t>(n_spheres) +
+         sizeof(float) * static_cast<size_t>(n_spheres + n_vpl) * kCols +
+         sizeof(uint32_t) * (4 * static_cast<size_t>(n_rows) + n_lights +
+                             2 * ((n_spheres + 31) / 32));
+}
+
 __global__ void trace_kernel(Params p) {
-  extern __shared__ float smem[];
-  float* scene = smem;
+  extern __shared__ float4 smem[];
+  float4* spheres = smem;                    // [S] packed
+  float4* solid = spheres + p.n_spheres;     // [S] the non-emitters
+  float* scene = reinterpret_cast<float*>(solid + p.n_spheres);
   float* vpl = scene + p.n_spheres * kCols;
   uint32_t* keys = reinterpret_cast<uint32_t*>(vpl + p.n_vpl * kCols);
+  uint32_t* scratch = keys + p.n_rows * 4 + p.n_lights;
   for (int i = threadIdx.x; i < p.n_spheres * kCols; i += blockDim.x)
     scene[i] = p.scene[i];
   for (int i = threadIdx.x; i < p.n_vpl * kCols; i += blockDim.x)
     vpl[i] = p.vpl[i];
   for (int i = threadIdx.x; i < p.n_rows * 4 + p.n_lights; i += blockDim.x)
     keys[i] = p.keys[i];
+  // Ends with a barrier, after which every table above is in place.
+  const int n_solid = load_scan_tables(p.scene, p.n_spheres, spheres, solid,
+                                       scratch);
   const int* lights = reinterpret_cast<const int*>(keys + p.n_rows * 4);
-  __syncthreads();
 
   const int idx = blockIdx.x * blockDim.x + threadIdx.x;
   if (idx >= p.n) return;
@@ -122,12 +147,14 @@ __global__ void trace_kernel(Params p) {
   Path s{ox, oy, oz, dx, dy, dz, 1.0f, 1.0f, 1.0f, true};
   float rad_r = 0.0f, rad_g = 0.0f, rad_b = 0.0f;
   const int per_depth = 2 * p.n_light_slots + 3;
+  const GroupScan<1> scan{spheres, solid, p.n_spheres, n_solid,
+                          group_mask<1>(), 0};
 
 #pragma unroll 1
   for (int depth = 0; depth < p.max_depth; ++depth) {
     int hit;
     if (eye_step(T, p.cam_rows + depth * per_depth, gl, s, rad_r, rad_g,
-                 rad_b, hit, nullptr) != kContinue)
+                 rad_b, hit, nullptr, nullptr, scan) != kContinue)
       break;
   }
 
@@ -141,12 +168,14 @@ __global__ void trace_kernel(Params p) {
 extern "C" int trace_kernel_launch(
     const void* scene, int n_spheres, const void* vpl, int n_vpl,
     const void* keys, int n_rows, const void* tape, int n_lights,
-    const void* cam,
-    const void* rays_o, const void* rays_d, int n, int width, int cam_rows, int max_depth,
-    int n_light_slots, int combine_half,
-    unsigned int lane_offset, unsigned int lane_total, float emission_scale,
-    float light_gain, void* out, void* stream) {
+    const void* cam, const void* rays_o, const void* rays_d, int n,
+    int width, int cam_rows, int max_depth, int n_light_slots,
+    int combine_half, unsigned int lane_offset, unsigned int lane_total,
+    float emission_scale, float light_gain, void* out, int block,
+    void* stream) {
   if (n <= 0) return 0;
+  if (block <= 0 || block > 1024 || block % 32 != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
   Params p;
   p.scene = static_cast<const float*>(scene);
   p.vpl = static_cast<const float*>(vpl);
@@ -171,11 +200,26 @@ extern "C" int trace_kernel_launch(
   p.lane_total = lane_total;
   p.emission_scale = emission_scale;
   p.light_gain = light_gain;
-  const size_t smem =
-      sizeof(float) * (n_spheres + n_vpl) * kCols +
-      sizeof(uint32_t) * (4 * n_rows + n_lights);
-  const int block = 128;
+  const size_t smem = smem_bytes(n_spheres, n_vpl, n_rows, n_lights);
+  if (smem > 48 * 1024) {   // opt in to the block's 227 KB
+    const cudaError_t err = cudaFuncSetAttribute(
+        trace_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
   const int grid = (n + block - 1) / block;
   trace_kernel<<<grid, block, smem, static_cast<cudaStream_t>(stream)>>>(p);
   return static_cast<int>(cudaGetLastError());
+}
+
+// The dynamic shared memory and resident blocks per SM of a launch of
+// `block` threads with these table sizes.
+extern "C" int trace_kernel_resources(int n_spheres, int n_vpl, int n_rows,
+                                      int n_lights, int block,
+                                      int* smem_bytes_out,
+                                      int* blocks_per_sm_out) {
+  const size_t smem = smem_bytes(n_spheres, n_vpl, n_rows, n_lights);
+  *smem_bytes_out = static_cast<int>(smem);
+  return static_cast<int>(cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      blocks_per_sm_out, trace_kernel, block, smem));
 }

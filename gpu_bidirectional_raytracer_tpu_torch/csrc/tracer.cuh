@@ -231,8 +231,9 @@ __device__ __forceinline__ float sphere_t4(const float4& q, float ox,
 // at its least t (strict <, in index order), then the group takes the
 // least (t, index) pair, so ties keep the lowest index as the serial scan
 // does. No float arithmetic after the roots: the answer is exactly
-// `nearest`'s. With G > 1 a lane takes four of its spheres at a time, so
-// four roots are in flight and a ray's chain is S / 4G roots deep.
+// `nearest`'s. A lane takes four of its spheres at a time, so four roots
+// are in flight and a ray's chain is S / 4G roots deep; with G = 1 this is
+// a per-thread scan (the eye-path kernel's).
 template <int G>
 __device__ __forceinline__ int nearest_group(const float4* table, int n,
                                              unsigned mask, int lane,
@@ -240,20 +241,17 @@ __device__ __forceinline__ int nearest_group(const float4* table, int n,
   float bt = kBig;
   int bi = 0;
   int i = lane;
-  if constexpr (G > 1) {   // four independent roots in flight a lane
 #pragma unroll 1
-    for (; i + 3 * G < n; i += 4 * G) {
-      float t[4];
+  for (; i + 3 * G < n; i += 4 * G) {   // four independent roots in flight
+    float t[4];
 #pragma unroll
-      for (int u = 0; u < 4; ++u)
-        t[u] = sphere_t4(table[i + u * G], s.ox, s.oy, s.oz, s.dx, s.dy,
-                         s.dz);
+    for (int u = 0; u < 4; ++u)
+      t[u] = sphere_t4(table[i + u * G], s.ox, s.oy, s.oz, s.dx, s.dy, s.dz);
 #pragma unroll
-      for (int u = 0; u < 4; ++u) {
-        if (t[u] > 0.0f && t[u] < bt) {
-          bt = t[u];
-          bi = i + u * G;
-        }
+    for (int u = 0; u < 4; ++u) {
+      if (t[u] > 0.0f && t[u] < bt) {
+        bt = t[u];
+        bi = i + u * G;
       }
     }
   }
@@ -289,18 +287,16 @@ __device__ __forceinline__ bool occluded_group(const float4* table, int n,
                                                float dx, float dy, float dz,
                                                float maxt) {
   int base = 0;
-  if constexpr (G > 1) {   // four rounds a vote, their roots independent
 #pragma unroll 1
-    for (; base + 4 * G <= n; base += 4 * G) {
-      bool blocked = false;
+  for (; base + 4 * G <= n; base += 4 * G) {   // four rounds a vote
+    bool blocked = false;
 #pragma unroll
-      for (int u = 0; u < 4; ++u) {
-        const float t = sphere_t4(table[base + u * G + lane], hx, hy, hz, dx,
-                                  dy, dz);
-        blocked = blocked || (t > 0.0f && t < maxt);
-      }
-      if (group_any<G>(mask, blocked)) return true;
+    for (int u = 0; u < 4; ++u) {
+      const float t = sphere_t4(table[base + u * G + lane], hx, hy, hz, dx,
+                                dy, dz);
+      blocked = blocked || (t > 0.0f && t < maxt);
     }
+    if (group_any<G>(mask, blocked)) return true;
   }
 #pragma unroll 1
   for (; base < n; base += G) {
@@ -475,8 +471,9 @@ int persistent_grid(Kernel kernel, int n, int block, size_t smem, int* grid,
 }
 
 // The scans eye_step runs. ThreadScan: the per-thread ones over the
-// scene table (trace_kernel, grad_kernel). GroupScan<G>: a group of G
-// lanes per ray over the packed tables (bounce_kernel).
+// scene table (grad_kernel). GroupScan<G>: a group of G lanes per ray over
+// the packed tables (bounce_kernel; G = 1, one thread a ray, in
+// trace_kernel).
 struct ThreadScan {
   __device__ __forceinline__ int nearest(const Tables& T, const Path& s,
                                          float& best_t) const {

@@ -138,7 +138,15 @@ _ENTRIES = {
         ctypes.c_int,                             # combine_half
         ctypes.c_uint, ctypes.c_uint,             # lane_offset, lane_total
         ctypes.c_float, ctypes.c_float,           # emission_scale, light_gain
-        ctypes.c_void_p, ctypes.c_void_p,         # out, stream
+        ctypes.c_void_p, ctypes.c_int,            # out, threads per block
+        ctypes.c_void_p,                          # stream
+    ]),
+    "trace_kernel_resources": ("trace_kernel", "trace_kernel_resources", [
+        ctypes.c_int, ctypes.c_int,               # n_spheres, n_vpl
+        ctypes.c_int, ctypes.c_int,               # n_rows, n_lights
+        ctypes.c_int,                             # threads per block
+        ctypes.POINTER(ctypes.c_int),             # dynamic shared bytes out
+        ctypes.POINTER(ctypes.c_int),             # blocks per SM out
     ]),
     "grad_kernel": ("grad_kernel", "grad_kernel_launch", _RUN_ARGS + [
         ctypes.c_void_p,                          # cotangent [n, 3]
@@ -182,7 +190,14 @@ _ENTRIES = {
         ctypes.c_void_p, ctypes.c_int,            # alive [n] bool, n
         ctypes.c_void_p, ctypes.c_void_p,         # t [n], hit id [n]
         ctypes.c_void_p, ctypes.c_void_p,         # p, e, c [9, n], refl [n]
-        ctypes.c_int, ctypes.c_void_p,            # threads per block, stream
+        ctypes.c_int, ctypes.c_int,               # threads per block, G
+        ctypes.c_void_p,                          # stream
+    ]),
+    "nearest_kernel_resources": ("scan_kernel", "nearest_kernel_resources", [
+        ctypes.c_int, ctypes.c_int,               # G, n_spheres
+        ctypes.c_int,                             # threads per block
+        ctypes.POINTER(ctypes.c_int),             # dynamic shared bytes out
+        ctypes.POINTER(ctypes.c_int),             # blocks per SM out
     ]),
     "anyhit_kernel": ("scan_kernel", "anyhit_kernel_launch", [
         ctypes.c_void_p, ctypes.c_int,            # scene, n_spheres

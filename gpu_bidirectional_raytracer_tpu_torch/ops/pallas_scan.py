@@ -6,17 +6,17 @@ Pallas kernels carry the scan route of `path_tracer.trace`
 depth runs its three sphere scans as kernels, the nearest hit with a fused
 gather of the hit sphere's attributes (`nearest_tiles`) and the any-hit of
 the light and VPL shadow segments (`anyhit_tiles`, the VPL one in vacuum
-mode, where emitters do not block). Here they are ``nearest_kernel``, a
-CUDA kernel for Hopper with one thread per lane, and ``anyhit_kernel``,
-one with a group of lanes of a warp per segment (`group_size`).
+mode, where emitters do not block). Here they are ``nearest_kernel`` and
+``anyhit_kernel``, CUDA kernels for Hopper with a group of lanes of a warp
+per ray (`group_size`).
 
 Both skip a whole tile of lanes when none of them is alive (nearest) or
 active (any-hit); a skipped lane reports a miss or no occlusion. The TPU
-tile is 1024 lanes; the nearest kernel's is a warp, `TILE` lanes, and the
-any-hit kernel's one lane, `ANYHIT_TILE`: an inactive lane reports
-unoccluded. The plain versions (`nearest_plain`, `anyhit_plain`) apply the
-same rule to the full all-pairs scan of `integrators.intersect` for any
-``tile``, so on the card a kernel and its plain version with its tile
+tile is 1024 lanes; the kernels' is one lane (`TILE`, `ANYHIT_TILE`): a
+lane that is not alive reports a miss, one that is not active
+unoccluded. The plain versions (`nearest_plain`, `anyhit_plain`) apply
+the same rule to the full all-pairs scan of `integrators.intersect` for
+any ``tile``, so on the card a kernel and its plain version with its tile
 give the same bits on every lane, and with ``tile=1024`` the plain
 version gives JAX's. Outputs on live or active lanes do not depend on the
 tile, and every caller masks with them.
@@ -39,18 +39,20 @@ from gpu_bidirectional_raytracer_tpu_torch.integrators import intersect as isect
 from gpu_bidirectional_raytracer_tpu_torch.ops import pallas_trace
 from gpu_bidirectional_raytracer_tpu_torch.ops.pallas_trace import LAUNCHES
 
-TILE = 32               # lanes the nearest kernel skips together: a warp
+TILE = 1                # lanes the nearest kernel skips together: one
 ANYHIT_TILE = 1         # the any-hit kernel's: each lane alone
-# Threads per block: complex.scn's 50 KB sphere table lets 4 blocks share
-# an SM, so 256 threads keep 1,024 resident (the nearest kernel).
-BLOCK = 256
-# The any-hit kernel's threads per block: each block loads the sphere
-# table once, and 1,024 threads load it for as many segments as four
-# blocks of 256 would. chip_smoke.py times both.
+# Threads per block of the persistent blocks: each loads the packed table
+# once and lists 1,024 rays a round, so blocks of 1,024 load it for the
+# most rays and list them with the fewest barriers (on one H100, complex.scn
+# at 512x384: the nearest kernel's mean launch 0.047 ms in blocks of 1,024
+# against 0.059 in blocks of 256; PERF.md).
+BLOCK = 1024
 ANYHIT_BLOCK = 1024
 GROUP_SIZES = (1, 4, 8, 16, 32)   # the lanes a ray the kernels take
-# Spheres each lane of the any-hit kernel's group keeps at least: on
-# complex.scn (783) the group is 32 lanes, on Cornell (9) one.
+# Spheres each lane of a group keeps at least: on complex.scn (783) the
+# nearest kernel's group is 16 lanes and the any-hit kernel's 32, on
+# Cornell (9) one for both.
+PER_LANE = 48
 ANYHIT_PER_LANE = 16
 _BIG = 1e20             # miss marker of the nearest scan
 
@@ -146,11 +148,21 @@ class ScanLaunch:
         return self.outs
 
 
-def prepare_nearest(scene: Scene, o: Tensor, d: Tensor,
-                    alive: Tensor) -> ScanLaunch:
-    """The launch of ``nearest_kernel`` on these lanes; its outputs are
-    ``(t [N], hit_id [N] int32, attrs [9, N] (p, e, c), refl [N]
-    int32)``."""
+def _check_launch(block: int, group: int) -> None:
+    if group not in GROUP_SIZES or block not in (32, 64, 128, 256, 512,
+                                                 1024):
+        raise ValueError(f"scan launch of {block} threads, G = {group}")
+
+
+def prepare_nearest(scene: Scene, o: Tensor, d: Tensor, alive: Tensor,
+                    block: int = BLOCK,
+                    group: int | None = None) -> ScanLaunch:
+    """The launch of ``nearest_kernel`` on these lanes, ``group`` lanes a
+    ray (by default `group_size` with `PER_LANE`); its outputs are ``(t
+    [N], hit_id [N] int32, attrs [9, N] (p, e, c), refl [N] int32)``."""
+    if group is None:
+        group = group_size(scene.num_spheres, PER_LANE)
+    _check_launch(block, group)
     n, dev = o.shape[0], scene.device
     o, d, alive = _lanes(n, dev, o, d, alive)
     table = pallas_trace._scene_table(scene)
@@ -160,7 +172,7 @@ def prepare_nearest(scene: Scene, o: Tensor, d: Tensor,
             torch.empty((n,), dtype=torch.int32, device=dev))
     return ScanLaunch("nearest_kernel", [table, o, d, alive], outs, (
         table.data_ptr(), table.shape[0], o.data_ptr(), d.data_ptr(),
-        alive.data_ptr(), n, *(x.data_ptr() for x in outs), BLOCK,
+        alive.data_ptr(), n, *(x.data_ptr() for x in outs), block, group,
         pallas_trace.current_stream(dev)))
 
 
@@ -173,9 +185,7 @@ def prepare_anyhit(scene: Scene, o: Tensor, d: Tensor, maxt: Tensor,
     is ``(occluded [N] bool,)``."""
     if group is None:
         group = group_size(scene.num_spheres, ANYHIT_PER_LANE)
-    if group not in GROUP_SIZES or block not in (32, 64, 128, 256, 512,
-                                                 1024):
-        raise ValueError(f"any-hit launch of {block} threads, G = {group}")
+    _check_launch(block, group)
     n, dev = o.shape[0], scene.device
     o, d, maxt, active = _lanes(n, dev, o, d, maxt, active)
     table = pallas_trace._scene_table(scene)
@@ -186,31 +196,43 @@ def prepare_anyhit(scene: Scene, o: Tensor, d: Tensor, maxt: Tensor,
         block, group, pallas_trace.current_stream(dev)))
 
 
+def _resources(entry: str, *args) -> dict:
+    from gpu_bidirectional_raytracer_tpu_torch.ops import _build
+
+    smem, blocks = ctypes.c_int(), ctypes.c_int()
+    rc = _build.load(entry)(*args, ctypes.byref(smem), ctypes.byref(blocks))
+    if rc != 0:
+        raise RuntimeError(f"{entry}: CUDA error {rc}")
+    return {"smem_bytes": smem.value, "blocks_per_sm": blocks.value}
+
+
 def anyhit_resources(scene: Scene, vacuum: bool, block: int = ANYHIT_BLOCK,
                      group: int | None = None) -> dict:
     """``{"smem_bytes", "blocks_per_sm"}`` of an ``anyhit_kernel`` launch
     on this scene: its dynamic shared memory and resident blocks per SM
     (CUDA's occupancy calculator). Needs a card."""
-    from gpu_bidirectional_raytracer_tpu_torch.ops import _build
-
     if group is None:
         group = group_size(scene.num_spheres, ANYHIT_PER_LANE)
-    smem, blocks = ctypes.c_int(), ctypes.c_int()
-    rc = _build.load("anyhit_kernel_resources")(
-        group, scene.num_spheres, int(vacuum), block, ctypes.byref(smem),
-        ctypes.byref(blocks))
-    if rc != 0:
-        raise RuntimeError(f"anyhit_kernel_resources: CUDA error {rc}")
-    return {"smem_bytes": smem.value, "blocks_per_sm": blocks.value}
+    return _resources("anyhit_kernel_resources", group, scene.num_spheres,
+                      int(vacuum), block)
+
+
+def nearest_resources(scene: Scene, block: int = BLOCK,
+                      group: int | None = None) -> dict:
+    """The same for a ``nearest_kernel`` launch on this scene."""
+    if group is None:
+        group = group_size(scene.num_spheres, PER_LANE)
+    return _resources("nearest_kernel_resources", group, scene.num_spheres,
+                      block)
 
 
 def nearest_tiles(scene: Scene, o: Tensor, d: Tensor, alive: Tensor):
     """Nearest hit and the hit sphere's attributes of the rays ``o, d [N,
     3]``: ``(hit [N] bool, t [N], hit_id [N] int32, p, e, c [N, 3], refl
     [N] int32)``, as `intersect.intersect` plus
-    `intersect.gather_sphere_attrs`. Lanes of a warp with no ``alive``
-    lane report a miss (t = 1e20, id 0, zero attributes); callers mask on
-    ``alive & hit`` as they do for the all-pairs scan."""
+    `intersect.gather_sphere_attrs`. Lanes that are not ``alive`` report
+    a miss (t = 1e20, id 0, zero attributes); callers mask on ``alive &
+    hit`` as they do for the all-pairs scan."""
     _forward_only(scene, o, d)
     if scene.device.type == "cpu":
         return nearest_plain(scene, o, d, alive)

@@ -2,8 +2,9 @@
 
 Port of ``gpu_bidirectional_raytracer_tpu/ops/pallas_trace.py``, whose
 Pallas kernel ``_kernel`` runs the whole eye path of a tile of rays in one
-TPU kernel. Here it is a CUDA kernel for Hopper, one thread per pixel (see
-the note at the top of the source for its design and bound):
+TPU kernel. Here it is a CUDA kernel for Hopper, one thread per pixel over
+packed scan tables (see the note at the top of the source for its design
+and bound):
 
 - `trace_pallas_camera` (camera mode): primary rays are made in the
   kernel from the pixel id and the jitter rows of the tape;
@@ -52,7 +53,11 @@ LAUNCHES = {"trace_kernel": 0, "grad_kernel": 0, "fused_kernel": 0,
             "anyhit_kernel": 0}
 
 _CAM_ROWS = 2                 # tape rows of the camera jitter
-_SMEM_LIMIT = 48 * 1024       # static shared-memory budget of one block
+_SMEM_LIMIT = 232448          # shared memory of one block (H100: 227 KB)
+# Threads per block of `trace_kernel`; chip_smoke.py times 128, 256 and
+# 512 (on one H100, Cornell at 512x512: 512 about 4% ahead of 128 and 3%
+# of 256).
+BLOCK = 512
 
 
 def reset_launches() -> None:
@@ -227,15 +232,28 @@ def check_tape(tape: Tape, n: int, dev) -> None:
                          f"[rows, {n}] tensor on {dev}")
 
 
+def smem_bytes(scene_tab: Tensor, vpl_tab: Tensor, tape: Tape) -> int:
+    """Shared memory of a `trace_kernel` launch: the packed scan tables
+    (two float4 a sphere), the scene and VPL tables, the tape keys and
+    light ids, and the table loader's scratch words."""
+    s = scene_tab.shape[0]
+    return (32 * s + 4 * (scene_tab.numel() + vpl_tab.numel()
+                          + tape.keys.numel()) + 8 * ((s + 31) // 32))
+
+
 def make_launch(scene_tab: Tensor, vpl_tab: Tensor, tape: Tape,
                 cfg: IntegratorConfig, light_idx: tuple[int, ...], n: int, *,
                 cam_tab: Tensor | None = None, width: int = 0,
                 rays: Rays | None = None, lane_offset: int = 0,
-                lane_total: int | None = None) -> TraceLaunch:
-    """The launch of `trace_kernel` on tables already on the card."""
+                lane_total: int | None = None,
+                block: int = BLOCK) -> TraceLaunch:
+    """The launch of `trace_kernel` on tables already on the card, in
+    blocks of ``block`` threads."""
     dev = scene_tab.device
     keys = tape.keys
-    smem = 4 * (scene_tab.numel() + vpl_tab.numel() + keys.numel())
+    smem = smem_bytes(scene_tab, vpl_tab, tape)
+    if block not in (32, 64, 128, 256, 512, 1024):
+        raise ValueError(f"trace_kernel launch of {block} threads")
     if smem > _SMEM_LIMIT:
         raise ValueError(f"trace_kernel tables need {smem} bytes of shared "
                          f"memory, above {_SMEM_LIMIT}")
@@ -261,8 +279,26 @@ def make_launch(scene_tab: Tensor, vpl_tab: Tensor, tape: Tape,
             int(cfg.combine_half),
             lane_offset, n if lane_total is None else lane_total,
             cfg.emission_scale, cfg.light_gain,
-            out.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+            out.data_ptr(), block, current_stream(dev))
     return TraceLaunch(tables, out, args)
+
+
+def trace_resources(scene_tab: Tensor, vpl_tab: Tensor, tape: Tape,
+                    n_lights: int, block: int = BLOCK) -> dict:
+    """``{"smem_bytes", "blocks_per_sm"}`` of a `trace_kernel` launch on
+    these tables: its dynamic shared memory and resident blocks per SM
+    (CUDA's occupancy calculator). Needs a card."""
+    import ctypes
+
+    from gpu_bidirectional_raytracer_tpu_torch.ops import _build
+
+    smem, blocks = ctypes.c_int(), ctypes.c_int()
+    rc = _build.load("trace_kernel_resources")(
+        scene_tab.shape[0], vpl_tab.shape[0], tape.n_rows, n_lights, block,
+        ctypes.byref(smem), ctypes.byref(blocks))
+    if rc != 0:
+        raise RuntimeError(f"trace_kernel_resources: CUDA error {rc}")
+    return {"smem_bytes": smem.value, "blocks_per_sm": blocks.value}
 
 
 def prepare_launch(scene: Scene, cfg: IntegratorConfig,
@@ -270,7 +306,8 @@ def prepare_launch(scene: Scene, cfg: IntegratorConfig,
                    vpls: VplBuffer | None, vlp_index: int | None, n: int, *,
                    cam_tab: Tensor | None = None, width: int = 0,
                    rays: Rays | None = None, lane_offset: int = 0,
-                   lane_total: int | None = None) -> TraceLaunch:
+                   lane_total: int | None = None,
+                   block: int = BLOCK) -> TraceLaunch:
     """Check the inputs and build the tables of one kernel launch."""
     scene_tab, vpl_tab, tape = launch_tables(
         scene, cfg, light_idx, key, sample, vpls, vlp_index, n,
@@ -278,18 +315,21 @@ def prepare_launch(scene: Scene, cfg: IntegratorConfig,
         lane_total=lane_total)
     return make_launch(scene_tab, vpl_tab, tape, cfg, light_idx, n,
                        cam_tab=cam_tab, width=width, rays=rays,
-                       lane_offset=lane_offset, lane_total=lane_total)
+                       lane_offset=lane_offset, lane_total=lane_total,
+                       block=block)
 
 
 def prepare_camera_launch(scene: Scene, cfg: IntegratorConfig,
                           light_idx: tuple[int, ...], cam: Camera,
                           width: int, height: int, key: rng.Key,
                           sample: int, vpls: VplBuffer | None = None,
-                          vlp_index: int | None = None) -> TraceLaunch:
+                          vlp_index: int | None = None,
+                          block: int = BLOCK) -> TraceLaunch:
     """The launch that `trace_pallas_camera` makes for CUDA tensors."""
     return prepare_launch(
         scene, cfg, light_idx, key, sample, vpls, vlp_index, width * height,
-        cam_tab=_camera_table(cam, cfg, width, height, sample), width=width)
+        cam_tab=_camera_table(cam, cfg, width, height, sample), width=width,
+        block=block)
 
 
 def trace_camera_plain(scene: Scene, cfg: IntegratorConfig,

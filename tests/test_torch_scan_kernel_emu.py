@@ -18,10 +18,12 @@ Cases, on complex.scn (783 spheres):
   on 1,000 random segments (not a multiple of G times the block) with a
   dead first stretch and 35% of the rest active, against
   ``anyhit_plain(tile=1)`` bit for bit on every lane;
-- ``nearest_kernel``, unchanged, against ``nearest_plain`` (``tile=32``)
-  on every lane, with dead warps: bit for bit but for ``t``, which
-  PyTorch's CPU arithmetic rounds otherwise on the ground sphere of
-  radius 1e4 (within 4 ulps of the scene's scale);
+- ``nearest_kernel`` at its default G against ``nearest_plain``
+  (``tile=1``) on every lane, with dead stretches: bit for bit but for
+  ``t``, which PyTorch's CPU arithmetic rounds otherwise on the ground
+  sphere of radius 1e4 (within 4 ulps of the scene's scale); at G = 1, 4,
+  8 and 32 the bits of G = 16 on every lane, and on a ragged prefix of
+  987 lanes the full launch's bits;
 - ``bounce_kernel`` and ``aux_kernel`` at 16x12, depth 7, mix32 and
   threefry keys: each depth launched with G = 1, 4, 8 and 32 on the
   plain version's state, every G the bits
@@ -34,9 +36,10 @@ Cases, on complex.scn (783 spheres):
   holds it so;
 - ties: complex.scn with a copy of a sphere appended, so its hits tie in
   t across the lanes of a group; G = 8 and 32 keep the lowest index, as
-  G = 1 (the serial scan) does, at depth 0.
+  G = 1 (the serial scan) does, at depth 0, in the fact kernel and in
+  ``nearest_kernel``.
 
-Skips when g++ is missing. About 20 s of one worker.
+Skips when g++ is missing. About 30 s of one worker.
 """
 
 import ctypes
@@ -155,14 +158,22 @@ def test_emulated_anyhit_matches_plain(emulated, complex_scene, vacuum,
         assert bool((got <= shadow).all())
 
 
+def _nearest(scene, o, d, alive, group=None):
+    """``nearest_kernel``'s outputs in `nearest_tiles`' form."""
+    t, hit_id, attrs, refl = ps.prepare_nearest(scene, o, d, alive,
+                                                block=BLOCK, group=group)()
+    return (t < 1e20, t, hit_id, attrs[0:3].T, attrs[3:6].T, attrs[6:9].T,
+            refl)
+
+
 def test_emulated_nearest_matches_plain(emulated, complex_scene):
     scene = complex_scene[2]
     o, d, _, alive = _segments(scene)
-    alive[300:400] = False      # dead warps in a live block
-    t, hit_id, attrs, refl = ps.prepare_nearest(scene, o, d, alive)()
-    got = (t < 1e20, t, hit_id, attrs[0:3].T, attrs[3:6].T, attrs[6:9].T,
-           refl)
-    want = ps.nearest_plain(scene, o, d, alive, tile=ps.TILE)
+    alive[300:400] = False      # a dead stretch in a live block
+    before = ops.LAUNCHES["nearest_kernel"]
+    got = _nearest(scene, o, d, alive)
+    assert ops.LAUNCHES["nearest_kernel"] == before + 1
+    want = ps.nearest_plain(scene, o, d, alive, tile=1)
     for k, (a, b) in enumerate(zip(got, want)):
         if k != 1:
             assert torch.equal(a, b), k
@@ -176,6 +187,22 @@ def test_emulated_nearest_matches_plain(emulated, complex_scene):
     torch.testing.assert_close(got[1], want[1], rtol=2e-5,
                                atol=4 * float(np.spacing(np.float32(scale))))
     assert float(got[0][alive].float().mean()) > 0.3
+    assert not got[0][~alive].any() and bool((got[1][~alive] == 1e20).all())
+
+
+@pytest.mark.parametrize("group", [1, 4, 8, 32])
+def test_emulated_nearest_groups_same_bits(emulated, complex_scene, group):
+    """Every G gives the default G's bits on every lane, and a ragged
+    prefix of the lanes the full launch's."""
+    scene = complex_scene[2]
+    o, d, _, alive = _segments(scene)
+    assert ps.group_size(scene.num_spheres, ps.PER_LANE) == 16
+    want = _nearest(scene, o, d, alive)
+    got = _nearest(scene, o, d, alive, group)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    m = N_SEGMENTS - 13
+    ragged = _nearest(scene, o[:m], d[:m], alive[:m], group)
+    assert all(torch.equal(a, b[:m]) for a, b in zip(ragged, want))
 
 
 def _facts_mismatch(a, b):
@@ -234,14 +261,12 @@ def test_emulated_bounce_and_facts_match_plain(emulated, complex_scene,
     assert live[0] == 1.0 and live[-1] < 0.5
 
 
-def test_emulated_group_nearest_keeps_the_lowest_index_on_ties(
-        emulated, complex_scene):
+def _tie_scene(scene):
     """complex.scn with a far speck and then a copy of its sphere 2
     (radius 15 at the origin) appended: every hit on sphere 2 ties in t
     with the copy, which sits in lane 0 of a group of 8 and lane 16 of a
     group of 32, below sphere 2's lane or across the first shuffle from
-    it; the group must keep sphere 2, as the serial scan does."""
-    orig, target, scene = complex_scene
+    it."""
     speck = {"rad": [0.01], "p": [[0.0, -1e5, 0.0]], "e": [[0.0] * 3],
              "c": [[0.5] * 3], "refl": [0]}
 
@@ -249,7 +274,15 @@ def test_emulated_group_nearest_keeps_the_lowest_index_on_ties(
         extra = torch.tensor(speck[name], dtype=a.dtype)
         return torch.cat([a, extra, a[2:3]])
 
-    scene = scene.replace(**{k: cat(getattr(scene, k), k) for k in speck})
+    return scene.replace(**{k: cat(getattr(scene, k), k) for k in speck})
+
+
+def test_emulated_group_nearest_keeps_the_lowest_index_on_ties(
+        emulated, complex_scene):
+    """On the tie scene the fact kernel's group must keep sphere 2, as
+    the serial scan does."""
+    orig, target, scene = complex_scene
+    scene = _tie_scene(scene)
     n = W * H
     cam = Camera.make(orig, target, W, H, device="cpu")
     li = static_light_indices(scene)
@@ -272,3 +305,20 @@ def test_emulated_group_nearest_keeps_the_lowest_index_on_ties(
     copy = scene.num_spheres - 1
     assert int((hits[1] == 2).sum()) > 0 and not bool((hits[1] == copy).any())
     assert torch.equal(hits[8], hits[1]) and torch.equal(hits[32], hits[1])
+
+
+def test_emulated_nearest_kernel_keeps_the_lowest_index_on_ties(
+        emulated, complex_scene):
+    """On the tie scene ``nearest_kernel`` keeps sphere 2 at every G, as
+    the serial scan does, on the camera's rays."""
+    orig, target, scene = complex_scene
+    scene = _tie_scene(scene)
+    cam = Camera.make(orig, target, W, H, device="cpu")
+    cfg = IntegratorConfig()
+    rays = progressive.frame_rays(cam, cfg, W, H, rng.make_key(0), 0)
+    alive = torch.ones((W * H,), dtype=torch.bool)
+    ids = {g: _nearest(scene, rays.o, rays.d, alive, g)[2]
+           for g in (1, 8, 32)}
+    copy = scene.num_spheres - 1
+    assert int((ids[1] == 2).sum()) > 0 and not bool((ids[1] == copy).any())
+    assert torch.equal(ids[8], ids[1]) and torch.equal(ids[32], ids[1])
