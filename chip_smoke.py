@@ -11,7 +11,9 @@ the re-walk; the per-bounce scan route there, the tracer's sphere scans
 through the nearest-hit and any-hit kernels, and the training step with
 the scans in matmul form; and the gradient carriers (``vis_grad_tau``
 through the adjoint kernels' carrier instantiations and the re-walk,
-``sil_grad_tau`` in PyTorch) in the training step and the fitter. It holds
+``sil_grad_tau`` in PyTorch) in the training step and the fitter; and the
+user-facing entry points (chunked passes, the light-tracing integrator,
+and the command line's render, resume and optimize in process). It holds
 every kernel against its plain PyTorch version and prints one line per
 phase, each with the seconds since the start. The launch counts a phase
 reads are set to 0 just before it drives its path.
@@ -134,7 +136,30 @@ reads are set to 0 just before it drives its path.
    other under tests/test_mxu.py's bounds (loss within 2e-2, gradient
    cosines above 0.98) on that file's 80-sphere scene, and on complex.scn
    for the loss and the e and c gradients;
-16. ``kernels``: one JSON line with a row per kernel (seven): launches on
+16. ``entry_points``: the user-facing entry points on cornell.scn,
+   ``IntegratorConfig()``, mix32 seed 0: (a) ``Renderer.step_n(16)`` at
+   512x512 against 16 ``step()`` calls, bit for bit (colors, counter,
+   sample, vlp_index), each with 16 ``trace_kernel`` launches and nothing
+   else, ms per pass of both (CUDA events after a warm-up) and of a chunk
+   on the rbg tape, and the synchronising CUDA calls in the chunk
+   (``torch.cuda``'s sync debug mode) by the line that made them,
+   reported; (b) the light-tracing integrator at 512x512:
+   ``step_light(8)`` against 8 ``step_light()`` calls and against a fresh
+   run, bit for bit (the splat's fixed-order sum), no kernel launched;
+   ``splat_to_film`` on the card against the CPU's on the same VPLs
+   (per pixel within ``1e-5 |ref| + 1e-6 max|ref|``, counts equal); a
+   finite image with ``counter == 8`` and max > 0; ms per light pass;
+   (c) ``cli.main`` in this process at 128x96: ``render --spp 8 --chunk
+   4 --checkpoint D`` (8 ``trace_kernel`` launches), then ``--spp 12
+   --resume`` (``resumed at sample 8``), whose PPM and restored state
+   equal a straight 12-pass render's bits; ``--mode light`` writes a PPM
+   of the requested size; ``--rng rbg`` renders through ``trace_kernel``
+   on a streamed tape whose rows have mean 0.5 and variance 1/12 (within
+   0.01 and 0.003); ``optimize`` (defaults: l2_unbiased, spp 4) for 3
+   steps at 64x48 with finite losses and ``grad_kernel`` launched; each
+   render's ThroughputMeter line is reported, and beside the times the
+   card's name and power limit (``nvidia-smi``);
+17. ``kernels``: one JSON line with a row per kernel (seven): launches on
    its path, ms per launch, the plain version's ms, and the bound; the
    eye-path and bounce kernels' rows also time 128, 256 and 512 threads
    per block (``block_ms``; the eye-path row with its resident blocks per
@@ -168,6 +193,7 @@ import dataclasses
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -222,6 +248,11 @@ TRACE_BLOCKS = (128, 256, 512)
 # The per-bounce scan route on complex.scn at 512x384 (tools/
 # bench_complex.py), and the matmul form's training step there.
 SCAN_SAMPLES, MXU_STEPS = 8, 2
+# The user-facing entry points (phase 16): passes of a chunk and of the
+# light integrator at 512x512, the CLI's render size, and the CLI's fit.
+CHUNK_PASSES, LIGHT_PASSES = 16, 8
+CLI_W, CLI_H = 128, 96
+OPT_W, OPT_H, OPT_STEPS = 64, 48, 3
 # tests/test_mxu.py's bounds for the matmul form against the direct one:
 # the forward's mean within 2% and at most 5% of its pixels off (isclose,
 # rtol 1e-3, atol 1e-4); the step's loss within 2e-2 and each gradient's
@@ -369,6 +400,7 @@ def smi_line() -> str:
 
 
 def phase_build() -> dict:
+    from gpu_bidirectional_raytracer_tpu_torch import native
     from gpu_bidirectional_raytracer_tpu_torch.ops import _build
 
     removed = []
@@ -378,6 +410,9 @@ def phase_build() -> dict:
             removed.append(str(lock))
     t = time.perf_counter()
     libs = _build.build_all()
+    t_native = time.perf_counter()
+    native_ok = native.available()   # g++: the .scn parser, PPM encoder
+    native_s = time.perf_counter() - t_native
     ptxas = {name: [ln.strip() for ln in log.splitlines()
                     if any(w in ln for w in ("entry function", "registers",
                                              "spill", "stack frame"))]
@@ -386,6 +421,7 @@ def phase_build() -> dict:
           nvcc_seconds={k: round(v, 3)
                         for k, v in _build.build_seconds.items()},
           libraries=[p.name for p in libs.values()], stale_locks=removed,
+          native_parser=native_ok, native_seconds=round(native_s, 3),
           ptxas=ptxas)
     return {name: _ptxas_entries(log)
             for name, log in _build.build_log.items()}
@@ -2125,6 +2161,230 @@ def phase_mxu_train() -> dict:
     return steps
 
 
+def _same_state(a, b) -> bool:
+    """Two render states with the same bits: colors, counter, sample,
+    vlp_index."""
+    return (torch.equal(a.colors, b.colors)
+            and torch.equal(a.counter, b.counter)
+            and (a.sample, a.vlp_index) == (b.sample, b.vlp_index))
+
+
+def _cli(argv: list) -> tuple[int, str]:
+    """``cli.main(argv)`` in this process on the card: its exit code and
+    what it wrote to stderr."""
+    import contextlib
+    import io
+
+    from gpu_bidirectional_raytracer_tpu_torch import cli
+
+    err = io.StringIO()
+    with contextlib.redirect_stderr(err):
+        rc = cli.main(argv)
+    return rc, err.getvalue()
+
+
+def _meter(err: str) -> str:
+    """The ThroughputMeter line of a CLI render."""
+    lines = [ln for ln in err.splitlines() if ln.startswith("Rendering time")]
+    check(len(lines) == 1, f"cli: no ThroughputMeter line in {err!r}")
+    return lines[0]
+
+
+def phase_entry_points() -> dict:
+    """The user-facing entry points on the card: chunked passes, the
+    light-tracing integrator, and the CLI in process (render, resume,
+    ``--mode light``, ``--rng rbg``, optimize). Each path's launches are
+    read with the counts set to 0 just before it."""
+    import warnings
+
+    from gpu_bidirectional_raytracer_tpu_torch import rng
+    from gpu_bidirectional_raytracer_tpu_torch.core.types import (
+        IntegratorConfig,
+    )
+    from gpu_bidirectional_raytracer_tpu_torch.integrators import light_tracer
+    from gpu_bidirectional_raytracer_tpu_torch.ops import pallas_trace as ops
+    from gpu_bidirectional_raytracer_tpu_torch.render import film, progressive
+    from gpu_bidirectional_raytracer_tpu_torch.utils import checkpoint
+
+    orig, target, scene = _scene_at()
+    w, h, k = MAIN_W, MAIN_H, CHUNK_PASSES
+
+    def renderer():
+        return progressive.Renderer(scene, orig, target, w, h,
+                                    IntegratorConfig(), seed=0)
+
+    # chunk: step_n(k) against k steps, bit for bit, with their launches.
+    stepped, chunked = renderer(), renderer()
+    ops.reset_launches()
+    for _ in range(k):
+        stepped.step()
+    torch.cuda.synchronize()
+    step_launches = dict(ops.LAUNCHES)
+    ops.reset_launches()
+    with warnings.catch_warnings(record=True) as syncs:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            chunked.step_n(k)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    chunk_launches = dict(ops.LAUNCHES)
+    chunk_same = _same_state(stepped.state, chunked.state)
+    chunk_ms = cuda_ms(lambda: chunked.step_n(k), reps=4, warmup=1) / k
+    step_ms = cuda_ms(stepped.step, reps=4 * k, warmup=2)
+    rbg = progressive.Renderer(scene, orig, target, w, h,
+                               IntegratorConfig(), seed=0, rng_impl="rbg")
+    rbg_ms = cuda_ms(lambda: rbg.step_n(k), reps=2, warmup=1) / k
+    sites: dict = {}
+    for warn in syncs:   # the port's line that made each synchronising call
+        site = f"{os.path.relpath(warn.filename)}:{warn.lineno}"
+        sites[site] = sites.get(site, 0) + 1
+    chunk = {"passes": k, "same_bits": chunk_same,
+             "launches_stepped": step_launches,
+             "launches_chunked": chunk_launches,
+             "ms_per_pass_chunked": chunk_ms,
+             "ms_per_pass_stepped": step_ms,
+             "ms_per_pass_rbg_chunked": rbg_ms,
+             "host_syncs_in_chunk": len(syncs),
+             "host_sync_sites": sites}
+    check(chunk_same, "entry_points: step_n is not the steps' bits")
+    for name, got in (("stepped", step_launches), ("chunked", chunk_launches)):
+        check(got == counts(trace_kernel=k),
+              f"entry_points: {k} {name} passes launched {got}")
+
+    # light: step_light(n) against n single passes; two fresh runs; the
+    # card's splat against the CPU's on the same VPLs.
+    n = LIGHT_PASSES
+    ra, rb, rc = renderer(), renderer(), renderer()
+    ops.reset_launches()
+    ra.step_light(n)
+    torch.cuda.synchronize()
+    light_launches = dict(ops.LAUNCHES)
+    for _ in range(n):
+        rb.step_light()
+    rc.step_light(n)
+    img = ra.state.colors
+    dev_c, dev_n = light_tracer.splat_to_film(
+        scene, ra.camera, ra.cfg, ra.state.vpls, w, h, ra.light_idx)
+    cpu = lambda x: dataclasses.replace(  # noqa: E731
+        x, **{f.name: getattr(x, f.name).cpu()
+              for f in dataclasses.fields(x)})
+    ref_c, ref_n = light_tracer.splat_to_film(
+        cpu(scene), cpu(ra.camera), ra.cfg, cpu(ra.state.vpls), w, h,
+        ra.light_idx)
+    err = (dev_c.cpu() - ref_c).abs()
+    tol = 1e-5 * ref_c.abs() + 1e-6 * ref_c.abs().max()
+    light = {"passes": n, "launches": light_launches,
+             "chunk_same_bits": _same_state(ra.state, rb.state),
+             "fresh_runs_same_bits": _same_state(ra.state, rc.state),
+             "splat_vs_cpu_max_abs_err": float(err.max()),
+             "splat_vs_cpu_within_tol": bool((err <= tol).all()),
+             "count_equal": torch.equal(dev_n.cpu(), ref_n),
+             "splats": int(ref_n.sum()),
+             "finite": bool(torch.isfinite(img).all()),
+             "max": float(img.max()), "mean": float(img.mean()),
+             "counter_all_n": bool((ra.state.counter == n).all()),
+             "ms_per_light_pass": cuda_ms(rc.step_light, reps=10,
+                                          warmup=2)}
+    for key_ in ("chunk_same_bits", "fresh_runs_same_bits",
+                 "splat_vs_cpu_within_tol", "count_equal", "finite",
+                 "counter_all_n"):
+        check(light[key_], f"entry_points light: {key_} failed {light}")
+    check(light["max"] > 0.0, "entry_points light: black image")
+    check(light_launches == counts(),
+          f"entry_points light: launched {light_launches}")
+
+    # cli: render, resume, straight; --mode light; --rng rbg; optimize.
+    cw, ch = CLI_W, CLI_H
+    base = ["render", SCENE, "--width", str(cw), "--height", str(ch)]
+    with tempfile.TemporaryDirectory() as tmp:
+        ck = os.path.join(tmp, "ck")
+        out = {name: os.path.join(tmp, f"{name}.ppm")
+               for name in ("first", "resumed", "straight", "light", "rbg")}
+        ops.reset_launches()
+        rc1, err1 = _cli(base + ["--spp", "8", "--chunk", "4",
+                                 "--checkpoint", ck, "--out", out["first"]])
+        render_launches = dict(ops.LAUNCHES)
+        rc2, err2 = _cli(base + ["--spp", "12", "--chunk", "4",
+                                 "--checkpoint", ck, "--resume",
+                                 "--out", out["resumed"]])
+        rc3, err3 = _cli(base + ["--spp", "12", "--chunk", "4",
+                                 "--out", out["straight"]])
+        template = progressive.init_state(cw, ch, IntegratorConfig())
+        restored = checkpoint.restore(ck, template)
+        straight = progressive.Renderer(scene, orig, target, cw, ch,
+                                        IntegratorConfig(), seed=0)
+        straight.render(12, chunk=4)
+        resumed_same = (open(out["resumed"], "rb").read()
+                        == open(out["straight"], "rb").read())
+        rc4, err4 = _cli(base + ["--spp", "4", "--mode", "light",
+                                 "--out", out["light"]])
+        light_ppm = film.read_ppm(out["light"])
+        ops.reset_launches()
+        rc5, err5 = _cli(base + ["--spp", "4", "--rng", "rbg",
+                                 "--out", out["rbg"]])
+        rbg_launches = dict(ops.LAUNCHES)
+        rbg_ppm = film.read_ppm(out["rbg"])
+        tape = ops.tape_table(IntegratorConfig(), straight.light_idx,
+                              rng.make_key(0, "rbg"), 0, True, cw * ch,
+                              scene.device).stream
+        ow, oh = OPT_W, OPT_H
+        target_ppm = os.path.join(tmp, "target.ppm")
+        rc6, err6 = _cli(["render", SCENE, "--width", str(ow), "--height",
+                          str(oh), "--spp", "4", "--out", target_ppm])
+        ops.reset_launches()
+        rc7, err7 = _cli(["optimize", target_ppm, SCENE, "--steps",
+                          str(OPT_STEPS), "--params", "c",
+                          "--out", os.path.join(tmp, "opt.scn")])
+        opt_launches = dict(ops.LAUNCHES)
+    losses = [float(m) for m in re.findall(r"loss ([-+.\deEinfa]+)", err7)]
+    cli_res = {
+        "rcs": [rc1, rc2, rc3, rc4, rc5, rc6, rc7],
+        "render_launches": render_launches,
+        "resumed_line": [ln for ln in err2.splitlines()
+                         if ln.startswith("resumed")],
+        "resumed_ppm_same_bytes": resumed_same,
+        "restored_sample": None if restored is None else restored.sample,
+        "restored_colors_same_bits": restored is not None and torch.equal(
+            restored.colors, straight.state.colors),
+        "meter_first": _meter(err1), "meter_resumed": _meter(err2),
+        "meter_straight": _meter(err3), "meter_light": _meter(err4),
+        "light_ppm_shape": list(light_ppm.shape),
+        "rbg_launches": rbg_launches,
+        "rbg_ppm_mean": float(rbg_ppm.mean()),
+        "rbg_tape_rows": list(tape.shape),
+        "rbg_tape_mean": float(tape.mean()),
+        "rbg_tape_var": float(tape.var()),
+        "optimize_losses": losses,
+        "optimize_launches": opt_launches,
+    }
+    phase("entry_points", card=smi_line(), width=w, height=h, chunk=chunk,
+          light=light, cli=cli_res, cli_size=[cw, ch],
+          optimize_size=[ow, oh])
+    check(cli_res["rcs"] == [0] * 7, f"entry_points cli: exit codes "
+          f"{cli_res['rcs']}")
+    check(cli_res["resumed_line"] == ["resumed at sample 8"],
+          f"entry_points cli: {cli_res['resumed_line']}")
+    check(resumed_same and cli_res["restored_colors_same_bits"]
+          and cli_res["restored_sample"] == 12,
+          "entry_points cli: resume is not the straight render's bits")
+    check(render_launches["trace_kernel"] == 8,
+          f"entry_points cli: render launched {render_launches}")
+    check(light_ppm.shape == (ch, cw, 3),
+          f"entry_points cli: light PPM {light_ppm.shape}")
+    check(rbg_launches["trace_kernel"] == 4 and rbg_ppm.mean() > 0,
+          f"entry_points cli: rbg render {rbg_launches}")
+    check(abs(cli_res["rbg_tape_mean"] - 0.5) < 0.01
+          and abs(cli_res["rbg_tape_var"] - 1.0 / 12.0) < 0.003,
+          "entry_points cli: the rbg tape's mean or variance is off")
+    check(len(losses) >= 2 and all(math.isfinite(x) for x in losses),
+          f"entry_points cli: optimize losses {losses}")
+    check(opt_launches["grad_kernel"] >= 1,
+          f"entry_points cli: optimize launched {opt_launches}")
+    return {"chunk": chunk, "light": light, "cli": cli_res}
+
+
 def _scan_rows(svp: dict, spath: dict) -> list:
     """The rows of the two scan kernels at complex.scn's 512x384, sample
     0 of the scan path: per launch, at each depth's real inputs, without
@@ -2653,6 +2913,7 @@ def main() -> int:
         carrier_res = phase_carrier_train(train_res, ctrain_res)
         spath_res = phase_scan_path()
         phase_mxu_train()
+        phase_entry_points()
         phase_kernels(main_res, train_res, max_err, grad_err, device,
                       tape_res, bounce_res, cpath_res, ctrain_res, scan_res,
                       spath_res, carrier_err, carrier_res)

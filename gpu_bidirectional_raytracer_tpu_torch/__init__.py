@@ -10,6 +10,11 @@ spheres (``csrc/bounce_kernel.cu``) are CUDA C++ for Hopper, built with
 nvcc at first use and bound with ctypes (``ops/_build.py``). Entry points take a ``device`` that
 defaults to ``"cuda"`` and raise when no card is present; pass
 ``device="cpu"`` to run the plain versions on the CPU.
+
+The user-facing entry points are the JAX package's: the command line
+(``python -m gpu_bidirectional_raytracer_tpu_torch.cli``), the terminal
+viewer (``render/viewer.py``), checkpoints, profiling and debug helpers
+(``utils/``) and the native ``.scn`` parser (``native/``).
 """
 
 __version__ = "0.1.0"

@@ -10,6 +10,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from gpu_bidirectional_raytracer_tpu_torch import rng
 from gpu_bidirectional_raytracer_tpu_torch.core.types import (
     Camera,
     RenderState,
@@ -21,7 +22,7 @@ from gpu_bidirectional_raytracer_tpu_torch.scene.parser import (
 )
 
 __all__ = ["scene_from_numpy", "camera_from_numpy", "vpls_from_numpy",
-           "state_from_numpy"]
+           "key_from_numpy", "state_from_numpy"]
 
 
 def _f32(a, dev) -> torch.Tensor:
@@ -46,14 +47,21 @@ def vpls_from_numpy(hp, rad, nl, valid, sid,
                      sid=torch.tensor(np.asarray(sid, np.int32), device=dev))
 
 
+def key_from_numpy(key_data, impl: str = "mix32") -> rng.Key:
+    """The port's key of tape ``impl`` ("mix32", "threefry" or "rbg")
+    from the uint32 words of a JAX key (``jax.random.key_data``)."""
+    return rng.make_typed_key(
+        np.asarray(key_data, np.uint32).reshape(-1).tolist(), impl)
+
+
 def state_from_numpy(colors, counter, vpls: VplBuffer, vlp_index, sample,
-                     key_data, device: str | torch.device = "cuda"
-                     ) -> RenderState:
+                     key_data, device: str | torch.device = "cuda",
+                     impl: str = "mix32") -> RenderState:
     """A :class:`RenderState` from the JAX state's ``colors/counter/
-    vlp_index/sample`` and the two uint32 words of its mix32 key."""
+    vlp_index/sample`` and the uint32 words of its key (tape ``impl``)."""
     dev = resolve_device(device)
-    k0, k1 = (int(w) for w in np.asarray(key_data, np.uint32).reshape(2))
     return RenderState(
         colors=_f32(colors, dev),
         counter=torch.tensor(np.asarray(counter, np.int32), device=dev),
-        vpls=vpls, vlp_index=int(vlp_index), sample=int(sample), key=(k0, k1))
+        vpls=vpls, vlp_index=int(vlp_index), sample=int(sample),
+        key=key_from_numpy(key_data, impl))

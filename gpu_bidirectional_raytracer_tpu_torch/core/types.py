@@ -164,9 +164,9 @@ class RenderState:
     """Progressive accumulation state.
 
     ``colors``/``counter`` stay on the device. ``vlp_index`` and ``sample``
-    are host integers (the schedule branches on them), and ``key`` is the
-    pair of 32-bit words of the render key (`rng.make_key`: mix32, or a
-    `rng.ThreefryKey`).
+    are host integers (the schedule branches on them), and ``key`` holds
+    the 32-bit words of the render key (`rng.make_key`: mix32, a
+    `rng.ThreefryKey` or a `rng.RbgKey`).
     """
 
     colors: Tensor      # [H, W, 3] running mean radiance
@@ -174,7 +174,7 @@ class RenderState:
     vpls: VplBuffer
     vlp_index: int      # VPL gather window start
     sample: int         # progressive pass index
-    key: tuple[int, int]
+    key: tuple[int, ...]
 
     def replace(self, **kw: Any) -> "RenderState":
         return dataclasses.replace(self, **kw)

@@ -19,8 +19,13 @@ Two routes, as in the JAX package (`Renderer`):
   global tape, so any band height gives the same bits. With "xla" a band
   runs the plain torch tracer; with "pallas" the kernels by the same rule.
 
-Out of this module so far: chunked passes (``render_chunk``,
-``step_n``) and light splatting.
+`render_chunk` (``Renderer.step_n``, ``Renderer.render(chunk=)``) runs
+several passes per call; its loop body is exactly `Renderer.step`'s pass,
+so a chunk gives the bits of as many steps. The schedule's values
+(``sample``, ``vlp_index``) are host integers, so no pass waits on the
+card. `light_splat_pass` and `light_splat_chunk` (``Renderer.step_light``)
+are the light-tracing integrator: fresh light subpaths each pass,
+splatted onto the film (`light_tracer.splat_to_film`).
 """
 
 from __future__ import annotations
@@ -229,6 +234,57 @@ def tiled_pass(scene: Scene, cam: Camera, state: RenderState,
     return _fold(state, torch.cat(bands, dim=0), vpls, vlp_index, cfg)
 
 
+def render_chunk(scene: Scene, cam: Camera, state: RenderState,
+                 n_passes: int, cfg: IntegratorConfig, width: int,
+                 height: int, light_idx: tuple[int, ...],
+                 tile_rows: int | None = None, backend: str = "xla",
+                 direct_only: bool = False) -> RenderState:
+    """``n_passes`` progressive passes in one call. The loop body is
+    `Renderer.step`'s pass: `render_pass` for the untiled ``"pallas"``
+    backend, `tiled_pass` otherwise, so a chunk equals as many steps bit
+    for bit; the VPL refresh every ``max_iter - 1`` passes happens inside
+    the chunk. Nothing in the loop reads the card back."""
+    for _ in range(n_passes):
+        if backend == "pallas" and not tile_rows:
+            state = render_pass(scene, cam, state, cfg, width, height,
+                                light_idx, direct_only, backend)
+        else:
+            state = tiled_pass(scene, cam, state, cfg, width, height,
+                               light_idx, tile_rows, backend, direct_only)
+    return state
+
+
+def light_splat_pass(scene: Scene, cam: Camera, state: RenderState,
+                     cfg: IntegratorConfig, width: int, height: int,
+                     light_idx: tuple[int, ...]) -> RenderState:
+    """One light-tracing pass: ``light_points`` fresh light subpaths
+    splatted onto the film. The pass's estimate is the splat sum divided
+    by the lanes per light, folded into a running mean per pass (every
+    pixel counts every pass; no ``max_samples`` cap); the pass's VPLs are
+    kept in the state."""
+    vpls = light_tracer.trace_light_paths(scene, cfg, light_idx, state.key,
+                                          state.sample)
+    add_c, _ = light_tracer.splat_to_film(scene, cam, cfg, vpls, width,
+                                          height, light_idx)
+    n_per_light = cfg.light_points // max(len(light_idx), 1)
+    frame = add_c / float(max(n_per_light, 1))
+    k = state.counter.to(torch.float32)[..., None]
+    colors = (state.colors * k + frame) / (k + 1.0)
+    return state.replace(colors=colors, counter=state.counter + 1,
+                         vpls=vpls, sample=state.sample + 1)
+
+
+def light_splat_chunk(scene: Scene, cam: Camera, state: RenderState,
+                      n_passes: int, cfg: IntegratorConfig, width: int,
+                      height: int,
+                      light_idx: tuple[int, ...]) -> RenderState:
+    """``n_passes`` `light_splat_pass` passes in one call."""
+    for _ in range(n_passes):
+        state = light_splat_pass(scene, cam, state, cfg, width, height,
+                                 light_idx)
+    return state
+
+
 class Renderer:
     """Scene + camera + config + state: `step` is one progressive pass;
     the camera and scene edits restart the accumulation.
@@ -237,8 +293,8 @@ class Renderer:
     to 1024 spheres, the plain program otherwise), ``"pallas"`` or
     ``"xla"``. ``tile_rows``: trace each pass in bands of that many rows
     (the banded program; bounded memory for large frames and scenes).
-    ``rng_impl``: the tape, None or ``"mix32"`` (default) or
-    ``"threefry"``."""
+    ``rng_impl``: the tape, None or ``"mix32"`` (default),
+    ``"threefry"`` or ``"rbg"``."""
 
     def __init__(self, scene: Scene, cam_orig: Sequence[float],
                  cam_target: Sequence[float], width: int, height: int,
@@ -281,11 +337,32 @@ class Renderer:
                                      self.backend)
         return self.state
 
-    def render(self, spp: int, direct_only: bool = False) -> np.ndarray:
-        """Accumulate ``spp`` passes; the running mean as float32
+    def step_n(self, n_passes: int, direct_only: bool = False
+               ) -> RenderState:
+        """``n_passes`` passes through `render_chunk`: the bits of as
+        many `step` calls."""
+        self.state = render_chunk(self.scene, self.camera, self.state,
+                                  n_passes, self.cfg, self.width,
+                                  self.height, self.light_idx,
+                                  self.tile_rows, self.backend, direct_only)
+        return self.state
+
+    def step_light(self, n_passes: int = 1) -> RenderState:
+        """``n_passes`` light-tracing passes splatted onto the film
+        (`light_splat_chunk`; the CLI's ``--mode light``)."""
+        self.state = light_splat_chunk(self.scene, self.camera, self.state,
+                                       n_passes, self.cfg, self.width,
+                                       self.height, self.light_idx)
+        return self.state
+
+    def render(self, spp: int, direct_only: bool = False,
+               chunk: int = 1) -> np.ndarray:
+        """Accumulate ``spp`` passes, in chunks of ``chunk`` passes
+        (`step_n`; the same image); the running mean as float32
         ``[H, W, 3]`` (row 0 = bottom)."""
-        for _ in range(spp):
-            self.step(direct_only)
+        chunk = max(chunk, 1)
+        for done in range(0, spp, chunk):
+            self.step_n(min(chunk, spp - done), direct_only)
         return self.state.colors.cpu().numpy()
 
     def reset(self) -> None:

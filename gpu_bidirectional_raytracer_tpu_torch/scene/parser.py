@@ -119,10 +119,27 @@ def parse_scene(text: str, device: str | torch.device = "cuda"
 
 
 def load_scene(path: Union[str, os.PathLike],
-               device: str | torch.device = "cuda"
+               device: str | torch.device = "cuda",
+               prefer_native: bool = True
                ) -> tuple[np.ndarray, np.ndarray, Scene]:
+    """Read and parse a ``.scn`` file: with the native parser when
+    ``prefer_native`` and it builds (`native.available`), else in
+    Python; malformed input raises :class:`SceneParseError` either way."""
     with open(path, "r") as f:
-        return parse_scene(f.read(), device=device)
+        text = f.read()
+    if prefer_native:
+        from gpu_bidirectional_raytracer_tpu_torch import native
+
+        try:
+            parsed = native.scn_parse(text)
+        except ValueError as e:
+            raise SceneParseError(str(e)) from e
+        if parsed is not None:
+            cam, flat = parsed
+            return cam[:3], cam[3:], scene_from_arrays(
+                flat[:, 0], flat[:, 1:4], flat[:, 4:7], flat[:, 7:10],
+                flat[:, 10].astype(np.int32), device=device)
+    return parse_scene(text, device=device)
 
 
 def scale_world(orig, target, scene: Scene, factor: float):

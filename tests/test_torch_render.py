@@ -17,12 +17,15 @@ from gpu_bidirectional_raytracer_tpu.render import film as jfilm
 from gpu_bidirectional_raytracer_tpu.render import progressive as jprog
 from gpu_bidirectional_raytracer_tpu.scene import parser as jparser
 import gpu_bidirectional_raytracer_tpu_torch as tpkg
+from gpu_bidirectional_raytracer_tpu_torch import cli as tcli
 from gpu_bidirectional_raytracer_tpu_torch import convert
+from gpu_bidirectional_raytracer_tpu_torch import rng as trng
 from gpu_bidirectional_raytracer_tpu_torch.core import types as ttypes
 from gpu_bidirectional_raytracer_tpu_torch.ops import pallas_trace as tops
 from gpu_bidirectional_raytracer_tpu_torch.render import film as tfilm
 from gpu_bidirectional_raytracer_tpu_torch.render import progressive as tprog
 from gpu_bidirectional_raytracer_tpu_torch.scene import parser as tparser
+from gpu_bidirectional_raytracer_tpu_torch.utils import profiling as tprof
 from torch_parity import assert_protocol, scn, to_torch_vpls
 
 torch.set_num_threads(2)
@@ -141,7 +144,7 @@ def test_ppm_bytes_identical(tmp_path):
             == jfilm.snapshot_name(1, 2.5, 30))
 
 
-def test_port_and_smoke_script_never_import_jax():
+def test_port_and_smoke_script_never_import_jax(tmp_path):
     code = (
         "import sys, runpy\n"
         "import gpu_bidirectional_raytracer_tpu_torch as p\n"
@@ -151,9 +154,15 @@ def test_port_and_smoke_script_never_import_jax():
         "pallas_trace\n"
         "from gpu_bidirectional_raytracer_tpu_torch.diff import gradients\n"
         "from gpu_bidirectional_raytracer_tpu_torch.render import film, "
-        "progressive\n"
+        "progressive, viewer\n"
         "from gpu_bidirectional_raytracer_tpu_torch.integrators import "
         "direct, intersect, light_tracer, path_tracer\n"
+        "from gpu_bidirectional_raytracer_tpu_torch import cli, native, rng\n"
+        "from gpu_bidirectional_raytracer_tpu_torch.utils import checkpoint, "
+        "debug, profiling\n"
+        "assert cli.main(['--device', 'cpu', 'render', "
+        "'assets/scenes/cornell.scn', '--width', '8', '--height', '6', "
+        "'--spp', '2', '--out', sys.argv[1]]) == 0\n"
         "runpy.run_path('chip_smoke.py', run_name='chip_smoke')\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' "
         "or m.startswith('jax.') or m.startswith("
@@ -162,7 +171,8 @@ def test_port_and_smoke_script_never_import_jax():
         "assert not bad, bad\n"
         "print('ok')\n")
     env = dict(os.environ, PYTHONPATH=REPO)
-    out = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+    out = subprocess.run([sys.executable, "-c", code,
+                          str(tmp_path / "a.ppm")], cwd=REPO, env=env,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip().endswith("ok")
@@ -180,6 +190,14 @@ def test_entry_points_raise_without_a_card(monkeypatch):
         lambda: tprog.render_image(scene, o, t, W, H, 1),
         lambda: ttypes.Camera.make(o, t, W, H),
         lambda: ttypes.VplBuffer.zeros(),
+        lambda: trng.uniforms(trng.make_key(0), 0, 0, 0, (4,)),
+        lambda: trng.normals(trng.make_key(0), 0, 0, 0, (4,)),
+        lambda: trng.fill_pool(trng.make_key(0), 4),
+        lambda: tcli.main(["render", scn("cornell.scn"), "--spp", "1"]),
+        lambda: tcli.main(["--device", "cuda:0", "render", "--spp", "1"]),
+        lambda: tcli.main(["view", scn("cornell.scn")]),
+        lambda: tcli.main(["optimize", "target.ppm", scn("cornell.scn")]),
+        lambda: tprof.torch_trace("trace.json").__enter__(),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="is_available"):
@@ -220,3 +238,60 @@ def test_direct_only_and_threefry_renders_match_jax(rng_impl):
     tr.reset()
     assert tr.state.key == tprog.init_state(W, H, tr.cfg, 3, "cpu",
                                             rng_impl).key
+
+
+def _port_renderer(w=W, h=H, **kw):
+    o, t, ts = tparser.load_scene(scn("cornell.scn"), device="cpu")
+    return tprog.Renderer(ts, o, t, w, h, seed=4, device="cpu", **kw)
+
+
+def _same_state(a, b):
+    for f in ("colors", "counter"):
+        assert torch.equal(getattr(a, f), getattr(b, f)), f
+    assert (a.sample, a.vlp_index, a.key) == (b.sample, b.vlp_index, b.key)
+    for f in ("hp", "rad", "nl", "valid", "sid"):
+        assert torch.equal(getattr(a.vpls, f), getattr(b.vpls, f)), f
+
+
+@pytest.mark.parametrize("kw", [dict(backend="pallas"),
+                                dict(backend="xla", tile_rows=5)],
+                         ids=["render_pass", "tiled_pass"])
+def test_chunk_equals_steps_across_a_vpl_refresh(kw):
+    """`step_n(5)` and `render_chunk` against five `step`s, through the
+    untiled kernel route's body (`render_pass`; on the CPU its plain
+    version) and the banded one; the VPLs refresh at passes 0, 2 and 4."""
+    stepped, chunked = _port_renderer(**kw), _port_renderer(**kw)
+    for _ in range(5):
+        stepped.step()
+    chunked.step_n(5)
+    _same_state(stepped.state, chunked.state)
+    assert chunked.state.vlp_index == 2 * chunked.cfg.max_vlp
+    r = _port_renderer(**kw)
+    st = tprog.render_chunk(r.scene, r.camera, r.state, 5, r.cfg, W, H,
+                            r.light_idx, r.tile_rows, r.backend)
+    _same_state(st, stepped.state)
+
+
+def test_chunk_boundary_invariance():
+    """2 + 3 chunked passes, and `render(5, chunk=2)`, equal 5 steps (as
+    tests/test_render.py::TestChunkedRendering)."""
+    a, b, c = _port_renderer(), _port_renderer(), _port_renderer()
+    img = a.render(5)
+    b.step_n(2)
+    b.step_n(3)
+    _same_state(a.state, b.state)
+    assert np.array_equal(c.render(5, chunk=2), img)
+    _same_state(a.state, c.state)
+
+
+def test_chunked_render_matches_jax():
+    """`Renderer.render(spp=6, chunk=4)` against JAX's (backend "xla")
+    under the radiance protocol."""
+    jr, tr = _renderers(seed=6)
+    ref = jr.render(6, chunk=4)
+    got = tr.render(6, chunk=4)
+    assert_protocol(got.reshape(-1, 3), np.asarray(ref).reshape(-1, 3))
+    assert tr.state.sample == int(jr.state.sample) == 6
+    assert tr.state.vlp_index == int(jr.state.vlp_index)
+    assert np.array_equal(tr.state.counter.numpy(),
+                          np.asarray(jr.state.counter))

@@ -168,13 +168,15 @@ class TestThreefry:
         assert np.array_equal(bits.numpy().astype(np.uint32), want)
 
     def test_rbg_is_not_ported(self):
-        with pytest.raises(NotImplementedError, match="rbg"):
-            trng.make_key(0, "rbg")
+        """The rbg tape is ported now (`TestRbg`): ``make_key(0, "rbg")``
+        gives an `RbgKey`; an unknown tape still raises, and the default
+        is mix32."""
+        assert trng.key_impl(trng.make_key(0, "rbg")) == "rbg"
         with pytest.raises(ValueError):
             trng.make_key(0, "philox")
         assert trng.key_impl(trng.make_key(0)) == "mix32"
 
-    @pytest.mark.parametrize("impl", ["mix32", "threefry"])
+    @pytest.mark.parametrize("impl", ["mix32", "threefry", "rbg"])
     def test_rows_uniforms_are_site_uniforms(self, impl):
         """The rows the streamed tape is made of, all sites in one pass,
         equal `site_uniforms` row by row, in a window and whole."""
@@ -190,3 +192,105 @@ class TestThreefry:
                 key, s, d, p, max(b) + 1, 50, device="cpu", lane_offset=lo,
                 lane_total=total)[b] for s, d, p, b in sites])
             assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("impl", ["mix32", "threefry"])
+class TestWholeShapeDraws:
+    """`uniforms`, `fill_pool` and `normals` against JAX's `rng`: the
+    uniforms bit for bit; the normals within ``1e-5 |ref| + 1e-7`` (the
+    uniforms are JAX's bits, but ``torch.special.erfinv`` is not XLA's
+    erf_inv; measured up to 5.7e-6 relative over 2e5 draws)."""
+
+    @pytest.mark.parametrize("seed,shape", [(0, (7, 33)), (42, (1000,)),
+                                            (-3, (2, 3, 5))])
+    def test_uniforms(self, impl, seed, shape):
+        ref = np.asarray(jrng.uniforms(jrng.make_key(seed, impl), 3, 2,
+                                       jrng.DIFF_UV, shape))
+        got = trng.uniforms(trng.make_key(seed, impl), 3, 2, trng.DIFF_UV,
+                            shape, device="cpu").numpy()
+        assert got.dtype == np.float32 and np.array_equal(got, ref)
+
+    def test_fill_pool(self, impl):
+        for sample in (0, 9):
+            ref = np.asarray(jrng.fill_pool(jrng.make_key(5, impl), 4099,
+                                            sample))
+            got = trng.fill_pool(trng.make_key(5, impl), 4099, sample,
+                                 device="cpu").numpy()
+            assert np.array_equal(got, ref)
+
+    def test_normals(self, impl):
+        ref = np.asarray(jrng.normals(jrng.make_key(7, impl), 1, 0, 3,
+                                      (50000,)))
+        got = trng.normals(trng.make_key(7, impl), 1, 0, 3, (50000,),
+                           device="cpu").numpy()
+        assert got.dtype == np.float32
+        assert (np.abs(got - ref) <= 1e-5 * np.abs(ref) + 1e-7).all()
+        assert abs(got.mean()) < 0.02 and abs(got.std() - 1.0) < 0.02
+
+
+def test_mwc_bit_for_bit():
+    for s0, s1 in ((1, 2), (0xDEADBEEF, 12345), (2**32 - 1, 0)):
+        assert trng.mwc_random(s0, s1) == jrng.mwc_random(s0, s1)
+        got, ref = trng.mwc_sequence(s0, s1, 257), jrng.mwc_sequence(
+            s0, s1, 257)
+        assert got.dtype == np.float32
+        assert np.array_equal(got.view(np.uint32), ref.view(np.uint32))
+
+
+class TestRbg:
+    """The rbg tape: JAX's key words and fold-ins, bits from a
+    ``torch.Generator`` seeded per site and row (not JAX's bits, so
+    checked statistically), and lane windows that are slices of the whole
+    block."""
+
+    @pytest.mark.parametrize("seed", [0, 5, -3])
+    def test_key_words_and_fold_in_are_jax(self, seed):
+        jk, tk = jrng.make_key(seed, "rbg"), trng.make_key(seed, "rbg")
+        assert isinstance(tk, trng.RbgKey) and tk == _jax_words(jk)
+        for data in (0, 3, 2**32 - 1):
+            got = trng.fold_in(tk, data)
+            assert trng.key_impl(got) == "rbg"
+            assert got == _jax_words(jax.random.fold_in(jk, data))
+
+    def test_windows_and_lane_ids_are_slices_of_the_block(self):
+        key = trng.make_key(11, "rbg")
+        full = trng.site_uniforms(key, 2, 1, trng.LIGHT_UV, 4, 4096,
+                                  device="cpu")
+        win = trng.site_uniforms(key, 2, 1, trng.LIGHT_UV, 4, 77,
+                                 device="cpu", lane_offset=100,
+                                 lane_total=4096)
+        assert torch.equal(win, full[:, 100:177])
+        # More rows leave the first rows as they were.
+        assert torch.equal(trng.site_uniforms(
+            key, 2, 1, trng.LIGHT_UV, 2, 4096, device="cpu"), full[:2])
+        ids = torch.tensor([5, 3, 4000, 0, 63])
+        got = trng.site_uniforms(key, 2, 1, trng.LIGHT_UV, 4, 5,
+                                 device="cpu", lane_ids=ids,
+                                 lane_total=4096)
+        assert torch.equal(got, full[:, ids])
+        assert torch.equal(trng.uniforms(key, 2, 1, trng.LIGHT_UV, (4096,),
+                                         device="cpu"), full[0])
+        other = trng.site_uniforms(key, 3, 1, trng.LIGHT_UV, 4, 4096,
+                                   device="cpu")
+        assert not torch.equal(other, full)
+        with pytest.raises(ValueError, match="counter bits"):
+            trng.random_bits(key, torch.arange(4))
+
+    def test_statistics(self):
+        """Mean, variance and a 16-bin chi-square of 2^16 draws of each
+        of two sites, within about five standard errors (chi-square with
+        15 degrees of freedom: mean 15, sd 5.5)."""
+        key = trng.make_key(0, "rbg")
+        for sample in (0, 1):
+            u = trng.site_uniforms(key, sample, 0, trng.CAM_JITTER, 2,
+                                   1 << 15, device="cpu").reshape(-1)
+            assert u.dtype == torch.float32
+            assert float(u.min()) >= 0.0 and float(u.max()) < 1.0
+            assert abs(float(u.mean()) - 0.5) < 0.006
+            assert abs(float(u.var()) - 1.0 / 12.0) < 0.0015
+            counts = torch.bincount((u * 16).long(), minlength=16).double()
+            expect = u.numel() / 16
+            assert float(((counts - expect) ** 2 / expect).sum()) < 45.0
+        n = trng.normals(key, 0, 0, 7, (1 << 16,), device="cpu")
+        assert abs(float(n.mean())) < 0.02
+        assert abs(float(n.std()) - 1.0) < 0.02
