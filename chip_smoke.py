@@ -13,7 +13,9 @@ the scans in matmul form; and the gradient carriers (``vis_grad_tau``
 through the adjoint kernels' carrier instantiations and the re-walk,
 ``sil_grad_tau`` in PyTorch) in the training step and the fitter; and the
 user-facing entry points (chunked passes, the light-tracing integrator,
-and the command line's render, resume and optimize in process). It holds
+and the command line's render, resume and optimize in process); and the
+sharded render, trace, splat and training step over ranks on this card
+(one ``nccl`` rank, two ``gloo`` ranks). It holds
 every kernel against its plain PyTorch version and prints one line per
 phase, each with the seconds since the start. The launch counts a phase
 reads are set to 0 just before it drives its path.
@@ -159,7 +161,33 @@ reads are set to 0 just before it drives its path.
    steps at 64x48 with finite losses and ``grad_kernel`` launched; each
    render's ThroughputMeter line is reported, and beside the times the
    card's name and power limit (``nvidia-smi``);
-17. ``kernels``: one JSON line with a row per kernel (seven): launches on
+17. ``parallel``: the sharded functions of ``parallel.mesh``. (a) One
+   ``nccl`` rank in this process (``init_process_group`` with a 60 s
+   timeout) on cornell.scn at 512x512: ``render_loss_grad_sharded`` (l2,
+   spp 1; one ``trace_kernel`` and one ``grad_kernel`` launch) equal to
+   one-rank autograd of ``render_radiance_lanes`` on the same lanes, bit
+   for bit, and ms per step of both. (b) Two ``gloo`` ranks spawned on
+   this card (``_local_ranks.spawn_ranks``, 300 s timeout), each running,
+   at full width, every leg once to warm up and once counted:
+   ``trace_pallas_sharded`` and 8 ``render_pass_sharded`` passes (two
+   VPL refreshes) on Cornell 512x512, ``render_loss_grad_sharded`` there
+   (l2, spp 1, without and with ``vis_grad_tau`` 2), on complex.scn at
+   512x384 ``trace_pallas_bounce_sharded`` and one step, and
+   ``light_splat_sharded`` with 4096 subpaths. (c) Against the one-process
+   program on the card: the gathered traces and the banded renderer's
+   (``tile_rows`` 256) passes bit for bit; the passes against the
+   untiled renderer (camera mode) within ``rtol`` 1e-5, ``atol`` 1e-6, or
+   else under the radiance protocol, reported either way; the steps
+   against ``render_loss_grad`` (loss within 1e-5, each gradient within
+   ``1e-4 |ref| + 1e-4 max|ref|``); the light subpaths of each rank equal
+   to their slice of the full pass; the splat's counts equal and colours
+   within ``1e-5 |ref| + 1e-6 max|ref|``; every rank holding the same
+   bits; ``trace_kernel``, ``grad_kernel``, ``bounce_kernel`` and
+   ``aux_kernel`` launched in every rank. Reported, not gated: each
+   rank's launches and ms per leg, the one-process ms beside them (the
+   two ranks share the card), the phase's seconds. A rank that fails, or
+   hangs past its timeout, fails the run;
+18. ``kernels``: one JSON line with a row per kernel (seven): launches on
    its path, ms per launch, the plain version's ms, and the bound; the
    eye-path and bounce kernels' rows also time 128, 256 and 512 threads
    per block (``block_ms``; the eye-path row with its resident blocks per
@@ -253,6 +281,12 @@ SCAN_SAMPLES, MXU_STEPS = 8, 2
 CHUNK_PASSES, LIGHT_PASSES = 16, 8
 CLI_W, CLI_H = 128, 96
 OPT_W, OPT_H, OPT_STEPS = 64, 48, 3
+# The sharded functions (phase 17): gloo ranks spawned on the card, the
+# render's passes (across two VPL refreshes), the light subpaths of the
+# splat, and the timeouts: of a collective of the nccl rank, and of the
+# spawned ranks.
+PAR_RANKS, PAR_PASSES, PAR_SUBPATHS = 2, 8, 4096
+PAR_NCCL_TIMEOUT, PAR_SPAWN_TIMEOUT = 60.0, 300.0
 # tests/test_mxu.py's bounds for the matmul form against the direct one:
 # the forward's mean within 2% and at most 5% of its pixels off (isclose,
 # rtol 1e-3, atol 1e-4); the step's loss within 2e-2 and each gradient's
@@ -2385,6 +2419,325 @@ def phase_entry_points() -> dict:
     return {"chunk": chunk, "light": light, "cli": cli_res}
 
 
+def _parallel_rank(mesh) -> dict:
+    """One ``gloo`` rank of the ``parallel`` phase on the shared card:
+    every sharded function at full width, each leg warmed up once, then
+    run with the launch counts set to 0 just before it; its gathered or
+    replicated results, its launches and its ms."""
+    from gpu_bidirectional_raytracer_tpu_torch import rng
+    from gpu_bidirectional_raytracer_tpu_torch.core.types import (
+        Camera,
+        IntegratorConfig,
+    )
+    from gpu_bidirectional_raytracer_tpu_torch.integrators import light_tracer
+    from gpu_bidirectional_raytracer_tpu_torch.integrators.direct import (
+        static_light_indices,
+    )
+    from gpu_bidirectional_raytracer_tpu_torch.ops import pallas_trace as ops
+    from gpu_bidirectional_raytracer_tpu_torch.parallel import mesh as pmesh
+    from gpu_bidirectional_raytracer_tpu_torch.parallel._local_ranks import (
+        step_grads,
+    )
+    from gpu_bidirectional_raytracer_tpu_torch.render import progressive
+
+    dev = mesh.device
+    out, launches, ms = {}, {}, {}
+
+    def leg(name, fn, reps=1, warm=True):
+        if warm:
+            fn()
+        torch.cuda.synchronize(dev)
+        ops.reset_launches()
+        t = time.perf_counter()
+        for _ in range(reps):
+            r = fn()
+        torch.cuda.synchronize(dev)
+        ms[name] = (time.perf_counter() - t) * 1e3 / reps
+        launches[name] = {k: v for k, v in ops.LAUNCHES.items() if v}
+        return r
+
+    orig, target, scene = _scene_at(SCENE, dev)
+    cfg = IntegratorConfig()
+    w, h = MAIN_W, MAIN_H
+    cam = Camera.make(orig, target, w, h, device=dev)
+    li = static_light_indices(scene)
+    key = rng.make_key(0)
+    vpls = light_tracer.trace_light_paths(scene, cfg, li, key, 0)
+    rays = progressive.frame_rays(cam, cfg, w, h, key, 0)
+    out["trace"] = pmesh.gather_rows(leg("trace", lambda: (
+        pmesh.trace_pallas_sharded(scene, cfg, li, rays, key, 0, mesh,
+                                   vpls=vpls, vlp_index=0))), mesh)
+
+    def passes():
+        shard = pmesh.shard_state(progressive.init_state(w, h, cfg, 0, dev),
+                                  mesh)
+        for _ in range(PAR_PASSES):
+            shard = pmesh.render_pass_sharded(scene, cam, shard, cfg, w, h,
+                                              li, mesh)
+        return shard
+
+    shard = leg("render", passes)
+    ms["render"] /= PAR_PASSES
+    out["render"] = (pmesh.gather_rows(shard.colors, mesh),
+                     pmesh.gather_rows(shard.counter, mesh), shard.sample,
+                     shard.vlp_index)
+
+    black = torch.zeros((h, w, 3), dtype=torch.float32, device=dev)
+    for name, c in (("step", cfg),
+                    ("step_vis", dataclasses.replace(cfg,
+                                                     vis_grad_tau=VIS_TAU))):
+        out[name] = step_grads(*leg(name, lambda c=c: (
+            pmesh.render_loss_grad_sharded(scene, cam, key, black, c, w, h,
+                                           li, 1, mesh, loss="l2"))))
+
+    corig, ctarget, cscene = _scene_at(COMPLEX, dev)
+    cw, ch = COMPLEX_W, COMPLEX_H
+    ccam = Camera.make(corig, ctarget, cw, ch, device=dev)
+    cli = static_light_indices(cscene)
+    cvpls = light_tracer.trace_light_paths(cscene, cfg, cli, key, 0)
+    crays = progressive.frame_rays(ccam, cfg, cw, ch, key, 0)
+    out["complex_trace"] = pmesh.gather_rows(leg("complex_trace", lambda: (
+        pmesh.trace_pallas_bounce_sharded(cscene, cfg, cli, crays, key, 0,
+                                          mesh, vpls=cvpls, vlp_index=0))),
+        mesh)
+    cblack = torch.zeros((ch, cw, 3), dtype=torch.float32, device=dev)
+    out["complex_step"] = step_grads(*leg("complex_step", lambda: (
+        pmesh.render_loss_grad_sharded(cscene, ccam, key, cblack, cfg, cw,
+                                       ch, cli, 1, mesh, loss="l2"))))
+
+    scfg = dataclasses.replace(cfg, light_points=PAR_SUBPATHS)
+    n = PAR_SUBPATHS // mesh.size
+    win = light_tracer.trace_light_paths(scene, scfg, li, key, 0,
+                                         lane_offset=mesh.rank * n,
+                                         lane_count=n,
+                                         lane_total=PAR_SUBPATHS)
+    out["light_window"] = {f: getattr(win, f) for f in
+                           ("hp", "rad", "nl", "valid", "sid")}
+    out["splat"] = leg("splat", lambda: pmesh.light_splat_sharded(
+        scene, cam, scfg, li, key, 0, w, h, mesh))
+    return {"out": out, "launches": launches, "ms": ms,
+            "rank": mesh.rank, "size": mesh.size,
+            "backend": torch.distributed.get_backend(),
+            "device": str(dev)}
+
+
+def phase_parallel(device) -> dict:
+    """The sharded functions (`parallel.mesh`) on the card: one ``nccl``
+    rank in this process, then two ``gloo`` ranks spawned on the same
+    card, each against the one-process program."""
+    import torch.distributed as dist
+
+    from gpu_bidirectional_raytracer_tpu_torch import rng
+    from gpu_bidirectional_raytracer_tpu_torch.core.types import (
+        Camera,
+        IntegratorConfig,
+    )
+    from gpu_bidirectional_raytracer_tpu_torch.diff import gradients as G
+    from gpu_bidirectional_raytracer_tpu_torch.integrators import light_tracer
+    from gpu_bidirectional_raytracer_tpu_torch.integrators.direct import (
+        static_light_indices,
+    )
+    from gpu_bidirectional_raytracer_tpu_torch.ops import pallas_grad as pg
+    from gpu_bidirectional_raytracer_tpu_torch.ops import pallas_trace as ops
+    from gpu_bidirectional_raytracer_tpu_torch.ops.pallas_bounce import (
+        trace_pallas_bounce,
+    )
+    from gpu_bidirectional_raytracer_tpu_torch.parallel import (
+        distributed as pdist,
+    )
+    from gpu_bidirectional_raytracer_tpu_torch.parallel import mesh as pmesh
+    from gpu_bidirectional_raytracer_tpu_torch.parallel._local_ranks import (
+        free_port,
+        spawn_ranks,
+        step_close,
+        step_grads,
+    )
+    from gpu_bidirectional_raytracer_tpu_torch.render import progressive
+
+    t_phase = time.perf_counter()
+    orig, target, scene = _scene_at(SCENE, device)
+    cfg = IntegratorConfig()
+    w, h, n = MAIN_W, MAIN_H, MAIN_W * MAIN_H
+    cam = Camera.make(orig, target, w, h, device=device)
+    li = static_light_indices(scene)
+    key = rng.make_key(0)
+    black = torch.zeros((h, w, 3), dtype=torch.float32, device=device)
+
+    # (a) One nccl rank in this process: the sharded step against one-rank
+    # autograd of the same lanes, bit for bit.
+    def one_rank_step():
+        with torch.enable_grad():
+            sc, _, leaves, _ = pg.param_leaves(scene)
+            rad = G.render_radiance_lanes(sc, cam, key, cfg, w, h, li, 1,
+                                          "pallas", lane_offset=0,
+                                          lane_count=n, lane_total=n)
+            value = G.l2_loss(rad, black.reshape(n, 3))
+            grads = torch.autograd.grad(value, leaves, allow_unused=True)
+        return value.detach(), pg.scene_grads(scene, grads)
+
+    check(not dist.is_initialized(), "parallel: a process group exists")
+    pdist.initialize_cluster(f"tcp://localhost:{free_port()}", 1, 0,
+                             backend="nccl", device=device,
+                             timeout=PAR_NCCL_TIMEOUT)
+    try:
+        m = pmesh.make_mesh(device=device)
+        nccl = {"backend": dist.get_backend(), "size": m.size,
+                "device": str(m.device)}
+        check(nccl["backend"] == "nccl" and m.group is not None
+              and m.size == 1, f"parallel: nccl mesh {nccl}")
+        ref = step_grads(*one_rank_step())
+        ops.reset_launches()
+        got = step_grads(*pmesh.render_loss_grad_sharded(
+            scene, cam, key, black, cfg, w, h, li, 1, m))
+        torch.cuda.synchronize()
+        nccl["launches"] = {k: v for k, v in ops.LAUNCHES.items() if v}
+        nccl["same_bits"] = {k: bool(torch.equal(got[k], ref[k]))
+                             for k in ref}
+        nccl["ms_step"] = cuda_ms(lambda: pmesh.render_loss_grad_sharded(
+            scene, cam, key, black, cfg, w, h, li, 1, m), reps=5)
+        nccl["ms_step_one_process"] = cuda_ms(one_rank_step, reps=5)
+    finally:
+        dist.destroy_process_group()
+    check(all(nccl["same_bits"].values()),
+          f"parallel: the nccl rank's step is not one rank's bits "
+          f"{nccl['same_bits']}")
+    check(nccl["launches"] == {"trace_kernel": 1, "grad_kernel": 1},
+          f"parallel: nccl step launched {nccl['launches']}")
+
+    # (b) Two gloo ranks on this card.
+    t = time.perf_counter()
+    try:
+        ranks = spawn_ranks(_parallel_rank, PAR_RANKS, device=device,
+                            timeout=PAR_SPAWN_TIMEOUT)
+    except RuntimeError as err:
+        raise SmokeFailure(f"parallel: gloo ranks failed: {err}") from err
+    spawn_s = time.perf_counter() - t
+    r0 = ranks[0]["out"]
+    same_on_ranks = {k: all(_same_tree(r["out"][k], r0[k]) for r in ranks)
+                     for k in r0 if k != "light_window"}
+
+    # (c) The one-process program on the same inputs, on the card.
+    vpls = light_tracer.trace_light_paths(scene, cfg, li, key, 0)
+    rays = progressive.frame_rays(cam, cfg, w, h, key, 0)
+    gates = {}
+    gates["trace_bits"] = bool(torch.equal(
+        r0["trace"], ops.trace_pallas(scene, cfg, li, rays, key, 0,
+                                      vpls=vpls, vlp_index=0).cpu()))
+
+    def renderer(**kw):
+        r = progressive.Renderer(scene, orig, target, w, h, cfg, seed=0,
+                                 device=device, backend="pallas", **kw)
+        for _ in range(PAR_PASSES):
+            r.step()
+        return r.state
+
+    banded = renderer(tile_rows=h // PAR_RANKS)
+    colors, counter, sample, vlp_index = r0["render"]
+    gates["render_bits"] = bool(
+        torch.equal(colors, banded.colors.cpu())
+        and torch.equal(counter, banded.counter.cpu())
+        and (sample, vlp_index) == (banded.sample, banded.vlp_index))
+    untiled = renderer().colors.cpu()
+    camera_vs_ray = {
+        "max_abs_err": float((colors - untiled).abs().max()),
+        "within_1e-5": bool(torch.allclose(colors, untiled, rtol=1e-5,
+                                           atol=1e-6)),
+        **protocol(colors, untiled)}
+    gates["render_vs_untiled"] = (camera_vs_ray["within_1e-5"]
+                                  or camera_vs_ray["bad_frac"]
+                                  <= MAX_BAD_FRAC)
+
+    steps = {}
+    for name, c in (("step", cfg),
+                    ("step_vis", dataclasses.replace(cfg,
+                                                     vis_grad_tau=VIS_TAU))):
+        ref = step_grads(*G.render_loss_grad(scene, cam, key, black, c, w, h,
+                                            li, 1, "l2", "pallas"))
+        steps[name] = step_close(r0[name], ref)
+
+    corig, ctarget, cscene = _scene_at(COMPLEX, device)
+    cw, ch = COMPLEX_W, COMPLEX_H
+    ccam = Camera.make(corig, ctarget, cw, ch, device=device)
+    cli = static_light_indices(cscene)
+    cvpls = light_tracer.trace_light_paths(cscene, cfg, cli, key, 0)
+    crays = progressive.frame_rays(ccam, cfg, cw, ch, key, 0)
+    gates["complex_trace_bits"] = bool(torch.equal(
+        r0["complex_trace"], trace_pallas_bounce(
+            cscene, cfg, cli, crays, key, 0, vpls=cvpls,
+            vlp_index=0).cpu()))
+    cblack = torch.zeros((ch, cw, 3), dtype=torch.float32, device=device)
+    steps["complex_step"] = step_close(r0["complex_step"], step_grads(
+        *G.render_loss_grad(cscene, ccam, key, cblack, cfg, cw, ch, cli, 1,
+                            "l2", "pallas")))
+    for name, res in steps.items():
+        gates[name] = res["ok"]
+
+    scfg = dataclasses.replace(cfg, light_points=PAR_SUBPATHS)
+    full = light_tracer.trace_light_paths(scene, scfg, li, key, 0)
+    k = PAR_SUBPATHS // PAR_RANKS
+    gates["light_window_bits"] = all(
+        torch.equal(r["out"]["light_window"][f],
+                    getattr(full, f)[:, i * k:(i + 1) * k].cpu())
+        for i, r in enumerate(ranks) for f in r["out"]["light_window"])
+    ref_c, ref_n = light_tracer.splat_to_film(scene, cam, scfg, full, w, h,
+                                              li)
+    got_c, got_n = r0["splat"]
+    ref_c = ref_c.cpu()
+    splat_err = (got_c - ref_c).abs()
+    gates["splat_counts"] = bool(torch.equal(got_n, ref_n.cpu()))
+    gates["splat_colors"] = bool((splat_err <= 1e-5 * ref_c.abs() + 1e-6
+                                  * ref_c.abs().max()).all())
+    gates["same_on_every_rank"] = all(same_on_ranks.values())
+
+    rank_launches = [r["launches"] for r in ranks]
+    totals = [{} for _ in ranks]
+    for tot, per_leg in zip(totals, rank_launches):
+        for leg_counts in per_leg.values():
+            for kname, v in leg_counts.items():
+                tot[kname] = tot.get(kname, 0) + v
+    mono_ms = {
+        "render": cuda_ms(renderer, reps=2, warmup=1) / PAR_PASSES,
+        "splat": cuda_ms(lambda: light_tracer.splat_to_film(
+            scene, cam, scfg, light_tracer.trace_light_paths(
+                scene, scfg, li, key, 0), w, h, li), reps=3),
+        "step": cuda_ms(lambda: G.render_loss_grad(
+            scene, cam, key, black, cfg, w, h, li, 1, "l2", "pallas"),
+            reps=5),
+        "complex_step": cuda_ms(lambda: G.render_loss_grad(
+            cscene, ccam, key, cblack, cfg, cw, ch, cli, 1, "l2", "pallas"),
+            reps=2, warmup=1),
+    }
+    phase("parallel", card=smi_line(), nccl=nccl, gloo_ranks=PAR_RANKS,
+          gloo_device=str(device), spawn_s=round(spawn_s, 3),
+          backends=[r["backend"] for r in ranks],
+          launches_per_rank=rank_launches, gates=gates, steps=steps,
+          camera_vs_ray_mode=camera_vs_ray, same_on_ranks=same_on_ranks,
+          splat_max_abs_err=float(splat_err.max()),
+          ms_per_rank=[r["ms"] for r in ranks], ms_one_process=mono_ms,
+          seconds=round(time.perf_counter() - t_phase, 3))
+    check(all(r["backend"] == "gloo" and r["size"] == PAR_RANKS
+              for r in ranks), "parallel: the spawned ranks' group")
+    for kname in ("trace_kernel", "grad_kernel", "bounce_kernel",
+                  "aux_kernel"):
+        check(all(tot.get(kname, 0) > 0 for tot in totals),
+              f"parallel: {kname} not launched in every rank {totals}")
+    bad = sorted(g for g, ok in gates.items() if not ok)
+    check(not bad, f"parallel: gates failed {bad}")
+    return {"nccl": nccl, "gates": gates}
+
+
+def _same_tree(a, b) -> bool:
+    """Tensors, tuples and dicts of them equal bit for bit."""
+    if isinstance(a, torch.Tensor):
+        return isinstance(b, torch.Tensor) and torch.equal(a, b)
+    if isinstance(a, dict):
+        return a.keys() == b.keys() and all(_same_tree(a[k], b[k])
+                                            for k in a)
+    if isinstance(a, (tuple, list)):
+        return len(a) == len(b) and all(map(_same_tree, a, b))
+    return a == b
+
+
 def _scan_rows(svp: dict, spath: dict) -> list:
     """The rows of the two scan kernels at complex.scn's 512x384, sample
     0 of the scan path: per launch, at each depth's real inputs, without
@@ -2914,6 +3267,7 @@ def main() -> int:
         spath_res = phase_scan_path()
         phase_mxu_train()
         phase_entry_points()
+        phase_parallel(device)
         phase_kernels(main_res, train_res, max_err, grad_err, device,
                       tape_res, bounce_res, cpath_res, ctrain_res, scan_res,
                       spath_res, carrier_err, carrier_res)

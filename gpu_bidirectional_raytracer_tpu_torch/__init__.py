@@ -14,7 +14,10 @@ defaults to ``"cuda"`` and raise when no card is present; pass
 The user-facing entry points are the JAX package's: the command line
 (``python -m gpu_bidirectional_raytracer_tpu_torch.cli``), the terminal
 viewer (``render/viewer.py``), checkpoints, profiling and debug helpers
-(``utils/``) and the native ``.scn`` parser (``native/``).
+(``utils/``) and the native ``.scn`` parser (``native/``). ``parallel/``
+splits the render, the trace, the light splat and the training step over
+the ranks of a ``torch.distributed`` group, each rank running the same
+kernels on its window of lanes.
 """
 
 __version__ = "0.1.0"

@@ -23,6 +23,11 @@ def norm(v: Tensor, eps: float = 0.0) -> Tensor:
     return v * torch.reciprocal(torch.sqrt(dot(v, v)) + eps)[..., None]
 
 
+def length(v: Tensor) -> Tensor:
+    """Euclidean length over the trailing axis."""
+    return torch.sqrt(dot(v, v))
+
+
 def cross(a: Tensor, b: Tensor) -> Tensor:
     """Cross product over the trailing axis."""
     return torch.stack([

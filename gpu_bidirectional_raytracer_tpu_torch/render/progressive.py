@@ -125,14 +125,19 @@ def _accumulate(colors: Tensor, counter: Tensor, radiance: Tensor,
 
 
 def frame_rays(cam: Camera, cfg: IntegratorConfig, width: int,
-               height: int, key: rng.Key, sample: int) -> Rays:
-    """Jittered primary rays of the whole frame, made once per pass and
-    sliced into bands."""
-    n = width * height
+               height: int, key: rng.Key, sample: int, y0: int = 0,
+               rows: int | None = None) -> Rays:
+    """Jittered primary rays of rows ``[y0, y0 + rows)`` of the frame (by
+    default all of it), made once per pass and sliced into bands: lanes
+    ``[y0 * width, (y0 + rows) * width)`` of the frame's, the same bits."""
+    rows = height - y0 if rows is None else rows
+    lo, n = y0 * width, rows * width
     dev = cam.orig.device
     px, py = cam_mod.pixel_grid(width, height, device=dev)
+    px, py = px[lo:lo + n], py[lo:lo + n]
     jit_uv = rng.site_uniforms(key, sample, 0, rng.CAM_JITTER, 2, n,
-                               device=dev)
+                               device=dev, lane_offset=lo,
+                               lane_total=width * height)
     ju, jv = jit_uv[0], jit_uv[1]
     if cfg.stratify > 0:
         ju, jv = cam_mod.stratify_jitter(ju, jv, sample, cfg.stratify)
@@ -216,21 +221,25 @@ def eye_band_pass(scene: Scene, rays: Rays, cfg: IntegratorConfig,
 def tiled_pass(scene: Scene, cam: Camera, state: RenderState,
                cfg: IntegratorConfig, width: int, height: int,
                light_idx: tuple[int, ...], tile_rows: int | None,
-               backend: str = "xla",
-               direct_only: bool = False) -> RenderState:
+               backend: str = "xla", direct_only: bool = False,
+               y0: int = 0) -> RenderState:
     """One progressive pass through the banded program (one band when
-    ``tile_rows`` is None): any ``tile_rows`` gives the same bits."""
+    ``tile_rows`` is None): any ``tile_rows`` gives the same bits.
+    ``state`` holds rows ``[y0, y0 + its height)`` of the frame (by
+    default all of them); only those rows' rays are made and traced."""
     vpls, vlp_index = _schedule(scene, state, cfg, light_idx)
-    rays = frame_rays(cam, cfg, width, height, state.key, state.sample)
-    rows = tile_rows or height
+    window = state.colors.shape[0]
+    rays = frame_rays(cam, cfg, width, height, state.key, state.sample, y0,
+                      window)
+    rows = tile_rows or window
     bands = []
-    for y0 in range(0, height, rows):
-        bh = min(rows, height - y0)
-        lo, hi = y0 * width, (y0 + bh) * width
+    for b0 in range(0, window, rows):
+        bh = min(rows, window - b0)
+        lo, hi = b0 * width, (b0 + bh) * width
         band = Rays(o=rays.o[lo:hi], d=rays.d[lo:hi])
-        bands.append(eye_band_pass(scene, band, cfg, width, height, y0, bh,
-                                   light_idx, state.key, state.sample, vpls,
-                                   vlp_index, backend, direct_only))
+        bands.append(eye_band_pass(scene, band, cfg, width, height, y0 + b0,
+                                   bh, light_idx, state.key, state.sample,
+                                   vpls, vlp_index, backend, direct_only))
     return _fold(state, torch.cat(bands, dim=0), vpls, vlp_index, cfg)
 
 

@@ -40,7 +40,12 @@ device, and streamed to them as a ``[K, n]`` buffer.
 
 `uniforms`, `normals` and `fill_pool` draw whole shapes from one site;
 `mwc_random` and `mwc_sequence` are the reference's CPU generator, kept
-for parity tests (the renderer never uses them).
+for parity tests (the renderer never uses them). `mix32_reference` is an
+independent numpy model of the mix32 bits, the oracle of the tests.
+
+JAX's ``mix32_is_registered`` has no counterpart: it reports whether mix32
+is registered as a JAX PRNG implementation, and here the key's type says
+which tape it draws (`key_impl`), with nothing to register.
 """
 
 from __future__ import annotations
@@ -138,6 +143,24 @@ def _mix32(x, k1):
     x = _mul32(x, m3)
     x = x ^ (x >> 14)
     return x
+
+
+def mix32_reference(k0: int, k1: int, ctr) -> np.ndarray:
+    """Independent numpy model of the frozen mix32 bits (uint32) at the
+    counters ``ctr``: the oracle of the tests, sharing no code with
+    `_mix32`."""
+    with np.errstate(over="ignore"):
+        x = np.asarray(ctr, np.uint64) & 0xFFFFFFFF
+        x = (x ^ np.uint64(k0)) & 0xFFFFFFFF
+        x ^= x >> np.uint64(17)
+        x = (x * np.uint64(0xed5ad4bb)) & 0xFFFFFFFF
+        x = (x + np.uint64(k1)) & 0xFFFFFFFF
+        x ^= x >> np.uint64(11)
+        x = (x * np.uint64(0xac4c1b51)) & 0xFFFFFFFF
+        x ^= x >> np.uint64(15)
+        x = (x * np.uint64(0x31848bab)) & 0xFFFFFFFF
+        x ^= x >> np.uint64(14)
+        return x.astype(np.uint32)
 
 
 def _rotl(x, r: int):

@@ -21,7 +21,13 @@ from gpu_bidirectional_raytracer_tpu_torch import cli as tcli
 from gpu_bidirectional_raytracer_tpu_torch import convert
 from gpu_bidirectional_raytracer_tpu_torch import rng as trng
 from gpu_bidirectional_raytracer_tpu_torch.core import types as ttypes
+from gpu_bidirectional_raytracer_tpu_torch.integrators.direct import (
+    static_light_indices,
+)
 from gpu_bidirectional_raytracer_tpu_torch.ops import pallas_trace as tops
+from gpu_bidirectional_raytracer_tpu_torch.parallel import _local_ranks as local_ranks
+from gpu_bidirectional_raytracer_tpu_torch.parallel import distributed as tdist
+from gpu_bidirectional_raytracer_tpu_torch.parallel import mesh as tmesh
 from gpu_bidirectional_raytracer_tpu_torch.render import film as tfilm
 from gpu_bidirectional_raytracer_tpu_torch.render import progressive as tprog
 from gpu_bidirectional_raytracer_tpu_torch.scene import parser as tparser
@@ -156,7 +162,9 @@ def test_port_and_smoke_script_never_import_jax(tmp_path):
         "from gpu_bidirectional_raytracer_tpu_torch.render import film, "
         "progressive, viewer\n"
         "from gpu_bidirectional_raytracer_tpu_torch.integrators import "
-        "direct, intersect, light_tracer, path_tracer\n"
+        "direct, golden, intersect, light_tracer, path_tracer\n"
+        "from gpu_bidirectional_raytracer_tpu_torch.parallel import "
+        "_local_ranks, distributed, mesh\n"
         "from gpu_bidirectional_raytracer_tpu_torch import cli, native, rng\n"
         "from gpu_bidirectional_raytracer_tpu_torch.utils import checkpoint, "
         "debug, profiling\n"
@@ -182,6 +190,10 @@ def test_entry_points_raise_without_a_card(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     o, t, scene = tparser.load_scene(scn("cornell.scn"), device="cpu")
     cfg = ttypes.IntegratorConfig()
+    state = tprog.init_state(W, H, cfg, device="cpu")
+    cam = ttypes.Camera.make(o, t, W, H, device="cpu")
+    key, li = trng.make_key(0), static_light_indices(scene)
+    rays = tprog.frame_rays(cam, cfg, W, H, key, 0)
     calls = [
         lambda: tparser.load_scene(scn("cornell.scn")),
         lambda: tpkg.cornell_box(),
@@ -198,6 +210,18 @@ def test_entry_points_raise_without_a_card(monkeypatch):
         lambda: tcli.main(["view", scn("cornell.scn")]),
         lambda: tcli.main(["optimize", "target.ppm", scn("cornell.scn")]),
         lambda: tprof.torch_trace("trace.json").__enter__(),
+        lambda: tmesh.make_mesh(),
+        lambda: tdist.initialize_cluster(),
+        lambda: local_ranks.spawn_ranks(len, 2),
+        lambda: tmesh.shard_state(state),
+        lambda: tmesh.render_pass_sharded(scene, cam, state, cfg, W, H, li),
+        lambda: tmesh.trace_pallas_sharded(scene, cfg, li, rays, key, 0),
+        lambda: tmesh.trace_pallas_bounce_sharded(scene, cfg, li, rays, key,
+                                                  0),
+        lambda: tmesh.light_splat_sharded(scene, cam, cfg, li, key, 0, W, H),
+        lambda: tmesh.render_loss_grad_sharded(scene, cam, key,
+                                               torch.zeros(H, W, 3), cfg, W,
+                                               H, li),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="is_available"):

@@ -228,6 +228,22 @@ class TestWholeShapeDraws:
         assert abs(got.mean()) < 0.02 and abs(got.std() - 1.0) < 0.02
 
 
+@pytest.mark.parametrize("seed", [0, 42])
+def test_mix32_reference_matches_jax(seed):
+    """The port's numpy model of the mix32 bits against JAX's, on random
+    counters (numpy seed) of random site keys, and against the port's
+    tensor hash."""
+    r = np.random.default_rng(seed)
+    for _ in range(4):
+        k0, k1 = (int(w) for w in r.integers(0, 2 ** 32, 2))
+        ctr = r.integers(0, 2 ** 32, 4096, dtype=np.uint64)
+        got = trng.mix32_reference(k0, k1, ctr)
+        assert got.dtype == np.uint32
+        assert np.array_equal(got, jrng.mix32_reference(k0, k1, ctr))
+        bits = trng.random_bits((k0, k1), torch.tensor(ctr.astype(np.int64)))
+        assert np.array_equal(bits.numpy().astype(np.uint32), got)
+
+
 def test_mwc_bit_for_bit():
     for s0, s1 in ((1, 2), (0xDEADBEEF, 12345), (2**32 - 1, 0)):
         assert trng.mwc_random(s0, s1) == jrng.mwc_random(s0, s1)
