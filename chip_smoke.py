@@ -15,7 +15,9 @@ through the adjoint kernels' carrier instantiations and the re-walk,
 user-facing entry points (chunked passes, the light-tracing integrator,
 and the command line's render, resume and optimize in process); and the
 sharded render, trace, splat and training step over ranks on this card
-(one ``nccl`` rank, two ``gloo`` ranks). It holds
+(one ``nccl`` rank, two ``gloo`` ranks); and the north-star render of
+tools/torch_northstar.py, held to the JAX package's committed CPU render
+of the same configuration on the same tape. It holds
 every kernel against its plain PyTorch version and prints one line per
 phase, each with the seconds since the start. The launch counts a phase
 reads are set to 0 just before it drives its path.
@@ -187,7 +189,18 @@ reads are set to 0 just before it drives its path.
    rank's launches and ms per leg, the one-process ms beside them (the
    two ranks share the card), the phase's seconds. A rank that fails, or
    hangs past its timeout, fails the run;
-18. ``kernels``: one JSON line with a row per kernel (seven): launches on
+18. ``northstar``: tools/torch_northstar.py's two families through
+   ``Renderer(backend="auto")``, one ``trace_kernel`` launch a pass and
+   nothing else: the VPL family, the main path at full size (cornell.scn
+   at 512x384, 256 passes of ``IntegratorConfig()`` on the mix32 tape of
+   seed 0), and the golden family (1024x768, 1024 passes of
+   ``IntegratorConfig.cpu_golden()`` on the threefry tape); each held to
+   the JAX package's CPU render of the same passes
+   (``artifacts/northstar_vpl_cpu.npy``, ``artifacts/northstar_cpu.npy``)
+   under that tool's ``evaluate_gate``, tools/northstar.py's five checks
+   and bounds unchanged; every reading is printed beside the JAX TPU
+   render's (``JAX_TPU_GATE``), with the wall seconds;
+19. ``kernels``: one JSON line with a row per kernel (seven): launches on
    its path, ms per launch, the plain version's ms, and the bound; the
    eye-path and bounce kernels' rows also time 128, 256 and 512 threads
    per block (``block_ms``; the eye-path row with its resident blocks per
@@ -328,6 +341,22 @@ ADJOINT_RESOURCES = {
     "fused_kernel": {"registers": 93, "stack": 928, "smem_bytes": 11972},
     "grad_kernel_vis": {"registers": 95, "stack": 928, "smem_bytes": 25796},
     "fused_kernel_vis": {"registers": 96, "stack": 928, "smem_bytes": 25796},
+}
+
+
+# The north-star phase (18): tools/torch_northstar.py's families, and the
+# readings of its gate on the JAX package's TPU render of each family
+# (tools/northstar.py's evaluate_gate of artifacts/northstar_vpl_tpu.npy
+# and northstar_tpu.npy against the CPU renders), printed beside the
+# port's.
+NORTHSTAR_FAMILIES = ("vpl", "golden")
+JAX_TPU_GATE = {
+    "vpl": {"ncc": 0.99995, "mean_abs_diff": 0.00043,
+            "offender_pixel_fraction": 0.4322, "p999_rel_diff": 0.0387,
+            "max_abs_diff": 0.065},
+    "golden": {"ncc": 0.99996, "mean_abs_diff": 0.00327,
+               "offender_pixel_fraction": 0.4326, "p999_rel_diff": 0.0407,
+               "max_abs_diff": 0.655},
 }
 
 
@@ -2726,6 +2755,35 @@ def phase_parallel(device) -> dict:
     return {"nccl": nccl, "gates": gates}
 
 
+def phase_northstar() -> None:
+    """tools/torch_northstar.py's render of each family through its own
+    `render`, and its gate against the JAX package's CPU render."""
+    import importlib.util
+
+    path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tools",
+                        "torch_northstar.py")
+    spec = importlib.util.spec_from_file_location("torch_northstar", path)
+    ns = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(ns)
+    results = {}
+    for family in NORTHSTAR_FAMILIES:
+        img, info = ns.render(family)   # sets the counts to 0 first
+        metrics, ok = ns.compare(img, family)
+        results[family] = {**info, "shape": list(img.shape),
+                           "reference": ns.FAMILIES[family][5],
+                           "gate": metrics, "gate_passed": ok,
+                           "jax_tpu_vs_cpu": JAX_TPU_GATE[family]}
+    phase("northstar", card=smi_line(), families=results)
+    for family, r in results.items():
+        _, _, w, h, spp, _ = ns.FAMILIES[family]
+        check(r["launches"] == {"trace_kernel": spp},
+              f"northstar {family}: launched {r['launches']}, expected "
+              f"{{'trace_kernel': {spp}}}")
+        check(r["shape"] == [h, w, 3], f"northstar {family}: {r['shape']}")
+        check(r["gate_passed"],
+              f"northstar {family}: gate failed {r['gate']['checks']}")
+
+
 def _same_tree(a, b) -> bool:
     """Tensors, tuples and dicts of them equal bit for bit."""
     if isinstance(a, torch.Tensor):
@@ -3268,6 +3326,7 @@ def main() -> int:
         phase_mxu_train()
         phase_entry_points()
         phase_parallel(device)
+        phase_northstar()
         phase_kernels(main_res, train_res, max_err, grad_err, device,
                       tape_res, bounce_res, cpath_res, ctrain_res, scan_res,
                       spath_res, carrier_err, carrier_res)

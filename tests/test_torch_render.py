@@ -2,6 +2,7 @@
 the port's own guarantees: it never imports JAX, and its entry points
 raise when asked for a card that is not there."""
 
+import importlib.util
 import os
 import subprocess
 import sys
@@ -172,6 +173,35 @@ def test_port_and_smoke_script_never_import_jax(tmp_path):
         "'assets/scenes/cornell.scn', '--width', '8', '--height', '6', "
         "'--spp', '2', '--out', sys.argv[1]]) == 0\n"
         "runpy.run_path('chip_smoke.py', run_name='chip_smoke')\n"
+        # The programs around the package, each on the CPU at a tiny size.
+        "import importlib.util, os, torch\n"
+        "torch.set_num_threads(1)   # beside the other test workers\n"
+        "def load(path):\n"
+        "    spec = importlib.util.spec_from_file_location("
+        "os.path.basename(path)[:-3], path)\n"
+        "    mod = importlib.util.module_from_spec(spec)\n"
+        "    spec.loader.exec_module(mod)\n"
+        "    return mod\n"
+        "tmp = os.path.dirname(sys.argv[1])\n"
+        "ns = load('tools/torch_northstar.py')\n"
+        "assert ns.main(['--family', 'golden', '--device', 'cpu', "
+        "'--width', '8', '--height', '6', '--spp', '1', '--leg', 'render', "
+        "'--out', os.path.join(tmp, 'g.npy')]) == 0\n"
+        "lad = load('tools/torch_ladder.py')\n"
+        "lad.render_leg('simple.scn', 8, 6, 1, 'cpu', 'auto')\n"
+        "lad.inverse_scene('cpu')\n"
+        "bt = load('bench_torch.py')\n"
+        "o, t, sc = p.load_scene('assets/scenes/cornell.scn', device='cpu')\n"
+        "assert bt.census(sc, p.Camera.make(o, t, 8, 6, device='cpu'), "
+        "p.IntegratorConfig(), 8, 6, direct.static_light_indices(sc), "
+        "rng.make_key(0))"
+        "['extension_segments'] > 0\n"
+        "inv = load('examples/torch_inverse_rendering.py')\n"
+        "mc = load('examples/torch_multi_chip_render.py')\n"
+        "inv.STEPS, mc.PASSES = 1, 1\n"
+        "os.chdir(tmp)   # the examples write their images here\n"
+        "assert inv.main(['--device', 'cpu']) == 0\n"
+        "assert mc.main(['--device', 'cpu']) == 0\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' "
         "or m.startswith('jax.') or m.startswith("
         "'gpu_bidirectional_raytracer_tpu.') "
@@ -184,6 +214,17 @@ def test_port_and_smoke_script_never_import_jax(tmp_path):
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
     assert out.stdout.strip().endswith("ok")
+
+
+def _program(rel):
+    """A program of the repo around the package (``bench_torch.py``,
+    ``tools/``, ``examples/``) loaded as a module, its ``main`` not
+    run."""
+    spec = importlib.util.spec_from_file_location(
+        os.path.basename(rel)[:-3], os.path.join(REPO, rel))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
 
 
 def test_entry_points_raise_without_a_card(monkeypatch):
@@ -222,6 +263,13 @@ def test_entry_points_raise_without_a_card(monkeypatch):
         lambda: tmesh.render_loss_grad_sharded(scene, cam, key,
                                                torch.zeros(H, W, 3), cfg, W,
                                                H, li),
+        # The programs around the package, without --device cpu.
+        lambda: _program("bench_torch.py").main([]),
+        lambda: _program("tools/torch_northstar.py").main(
+            ["--family", "vpl"]),
+        lambda: _program("tools/torch_ladder.py").main(["--rung", "simple"]),
+        lambda: _program("examples/torch_inverse_rendering.py").main([]),
+        lambda: _program("examples/torch_multi_chip_render.py").main([]),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="is_available"):
